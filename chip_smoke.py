@@ -1,30 +1,62 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one GPU: `python3 chip_smoke.py`.
 
-Drives dxrpathtracer_tpu_torch's main path — the Sponza-class stand-in
-(246,084 triangles) at 1920x1080, path length 3, one CMJ sample per pixel
-per frame — and checks every kernel on it. Phases, each fatal on failure:
+Drives dxrpathtracer_tpu_torch's two main paths and checks every kernel on
+them: the path-traced frame (the Sponza-class stand-in, 246,084 triangles, at
+1920x1080, path length 3, one CMJ sample per pixel per frame) and the GI
+lightmap bake (the same scene, a 4096x4096 lightmap on the pair atlas,
+default settings: path length 3, sqrt_num_samples 4). Phases, each fatal on
+failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
-  2. build: compiles the traversal kernel (csrc/traverse.cu, nvcc, sm_90a)
-     and the native SAH builder from the checkout, with the seconds each took;
-  3. kernel against plain: the traversal kernel and its plain torch version,
+  2. build: compiles the traversal kernel (csrc/traverse.cu), the row-gather
+     kernel (csrc/gather.cu) and the native SAH builder from the checkout, all
+     at once, with the seconds each took and ptxas' register report;
+  3. traversal kernel against plain: the kernel and its plain torch version,
      both on the card, on the five ray classes of one plain-route 1080p
      sample (depth-1 closest on W8, depth-1 sun on W8, depth-2 closest, sun
      and terminal on W32): 0 visibility mismatches, 0 tri-id mismatches
-     outside equal-t ties, t/u/v within rtol 1e-6; times of both;
-  4. main path: RenderSession on the card; init and first-frame seconds,
-     median ms/frame over 10 frames, Mrays/s by bench.py's formula
-     W*H*(1+(L-1)*2)/dt; the accumulation must be finite and the kernel
-     must have launched 5 times per frame;
+     outside equal-t ties, t/u/v within rtol 1e-6; times of both; the plain
+     walk counts its internal and leaf visits and the distinct table rows it
+     touches, which give each class its bound (BOUND below);
+  4. frame main path: RenderSession on the card; init and first-frame
+     seconds, median ms/frame over 10 frames, Mrays/s by bench.py's formula
+     W*H*(1+(L-1)*2)/dt; the accumulation must be finite, the traversal
+     kernel must have launched 5 times and the gather kernel at least once
+     per frame;
   5. same frame, kernel against plain: one 240x135 sample on the card and
-     on the CPU; relative RMSE <= 1e-4.
+     on the CPU; relative RMSE <= 1e-4;
+  6. bake main path: Baker on the card at full size; atlas, texel-map and
+     surface-map seconds, covered texels (>= 50 %), first-step seconds,
+     median seconds per bake step over 3 more steps with the spread,
+     Mrays/s as covered*(1+(L-1)*2)/dt, traversal and gather launches per
+     step (both > 0), peak device memory, and the ms of the median, guided
+     and learned denoisers on the 4096^2 lightmap; the accumulation and
+     every denoised map must be finite;
+  7. row gather against plain: kernel, plain (`table[idx.long()]`) and
+     torch.index_select, bit-equal, timed with CUDA events on (a) the TPU
+     microbenchmark's shapes (32768 rows, 2^20 indices, width 32 and 128),
+     (b) the shading row (the stand-in's (246084, 64) tri_shade by the
+     2,073,600 depth-1 hit ids of one 1080p sample) and (c) the surface
+     map's gathers at 4096^2; each with M rows/s and its bound;
+  8. same bake, kernels against plain: BoxTest at 64x64, 2 steps, on the
+     card and on the CPU; relative RMSE <= 1e-4 and validCount equal.
 
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. Full results also go to
-chiprun_out/chip_smoke.json. Exits non-zero, with no result line, when there
-is no CUDA device or any phase fails. Imports no JAX.
+BOUND: the least time the card could take, the larger of the bytes moved
+(each input read once, each output written once) over 3.35 TB/s and the f32
+operations over 67 TFLOP/s (NVIDIA H100 SXM data sheet). A traversal class
+moves its rays (45 B in, 16 B out each) and the distinct 512 B table rows its
+walk touches, and does SLAB_OPS per child slot of each internal visit and
+MT_OPS per triangle of each leaf visit. A gather of n rows of `width` words
+moves its distinct rows, its indices and its output:
+(distinct*width + n + n*width)*4 B; beside it the script prints the time of
+n*width*4*2 + n*4 B, every gathered row counted as a read from memory.
+
+The line before the last is {"kernels": [...]}, whose `launches` count both
+main paths' runs; the last is {"ok": true, "device": {...}}. Full results
+also go to chiprun_out/chip_smoke.json. Exits non-zero, with no result line,
+when there is no CUDA device or any phase fails. Imports no JAX.
 """
 
 import json
@@ -37,9 +69,31 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "dxrpathtracer_tpu_torch/csrc/traverse.cu"
-TPU_KERNEL = "dxrpathtracer_tpu/accel/pallas_body.py:52"
+TRAVERSE_SOURCE = "dxrpathtracer_tpu_torch/csrc/traverse.cu"
+TRAVERSE_REPLACES = "dxrpathtracer_tpu/accel/pallas_body.py:52"
+GATHER_SOURCE = "dxrpathtracer_tpu_torch/csrc/gather.cu"
+GATHER_REPLACES = "tools/microbench_dma_gather.py:28"
 RTOL = 1e-6
+# Where and at what size the phases run: the card at full size. (A rehearsal
+# on the CPU may shrink them; the card's run never does.)
+DEVICE = "cuda"
+FRAME_SIZE = (1920, 1080)
+SAME_FRAME_SIZE = (240, 135)
+BAKE_RES = 4096
+MICROBENCH_ROWS, MICROBENCH_N = 32768, 1 << 20
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations of csrc/traverse.cu per child slot of an internal visit:
+# 6 subtractions and 6 products (slabs), 6 min/max for t_near and 6 for
+# t_far, and 3 comparisons (bounds valid, t_near <= t_far, nearest key).
+SLAB_OPS = 27
+# ... and per triangle of a leaf visit (Moller-Trumbore): p = d x e2 (9),
+# det (5), |det| test (2), 1/det (2), s = o - v0 (3), u (6), q = s x e1 (9),
+# v (6), t (6), the five range tests with u + v (6) and the nearest key (1).
+MT_OPS = 55
+RAY_IN_BYTES = 45  # origin, direction, 1/direction, t_min, t_max, active
+HIT_BYTES = 16     # t, tri_id, u, v
+ROW_BYTES = 512    # one table record
 
 
 def log(msg):
@@ -59,6 +113,17 @@ def cuda_ms(fn, repeat=1):
     return start.elapsed_time(stop) / repeat, out
 
 
+def bound_ms(nbytes, ops=0):
+    """(bound ms, "bytes" or "operations") by the BOUND rule above."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
 def phase_device():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -75,19 +140,32 @@ def phase_device():
 
 
 def phase_build():
-    from dxrpathtracer_tpu_torch.accel import bvh, traverse
-    t0 = time.time()
-    traverse.kernel_library()
-    t_kernel = time.time() - t0
-    t0 = time.time()
-    bvh.sah_library()
-    t_sah = time.time() - t0
-    log(f"build: traverse.cu (nvcc sm_90a) {t_kernel:.2f} s, "
-        f"sah_builder.cpp (g++) {t_sah:.2f} s")
-    for line in traverse.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            log(f"  ptxas: {line.strip()}")
-    return {"traverse_s": t_kernel, "sah_builder_s": t_sah}
+    """Builds the three native libraries at once (one compiler each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dxrpathtracer_tpu_torch.accel import bvh, gather, traverse
+
+    def timed(fn):
+        t0 = time.time()
+        fn()
+        return time.time() - t0
+
+    jobs = {"traverse_s": traverse.kernel_library,
+            "gather_s": gather.kernel_library,
+            "sah_builder_s": bvh.sah_library}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(timed, fn) for k, fn in jobs.items()}
+        secs = {k: f.result() for k, f in futures.items()}
+    log(f"build (in parallel): traverse.cu (nvcc sm_90a) "
+        f"{secs['traverse_s']:.2f} s, gather.cu (nvcc sm_90a) "
+        f"{secs['gather_s']:.2f} s, sah_builder.cpp (g++) "
+        f"{secs['sah_builder_s']:.2f} s")
+    for name, report in (("traverse", traverse.BUILD_LOG),
+                         ("gather", gather.BUILD_LOG)):
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    return secs
 
 
 def ray_classes(sess):
@@ -129,10 +207,35 @@ def ray_classes(sess):
     return out
 
 
+def walk_counts(bvh, first_hit, o, d, inv_d, tmin, tmax, act):
+    """(internal visits, leaf visits, distinct rows touched) of the plain
+    walk on these rays: traverse_plain's loop, counting as it steps."""
+    from dxrpathtracer_tpu_torch.accel import traverse
+    s = traverse.init_lanes(bvh, o, d, inv_d, tmin, tmax, act)
+    done = bvh.num_rows
+    internal = torch.zeros((), dtype=torch.int64, device=o.device)
+    leaf = torch.zeros_like(internal)
+    touched = torch.zeros(bvh.num_rows, dtype=torch.bool, device=o.device)
+    max_iters = bvh.num_rows * 2 + bvh.stack_depth + 4
+    it = 0
+    while it < max_iters and bool((s.cur != done).any()):
+        alive = s.cur != done
+        is_leaf = alive & (s.cur < 0)
+        internal += (alive & ~is_leaf).sum()
+        leaf += is_leaf.sum()
+        touched[torch.where(is_leaf, ~s.cur, s.cur)[alive].long()] = True
+        s = traverse.traverse_step_plain(bvh, s, first_hit)
+        it += 1
+    return int(internal), int(leaf), int(touched.sum())
+
+
 def phase_kernel_vs_plain(sess):
     from dxrpathtracer_tpu_torch.accel import traverse
+    from dxrpathtracer_tpu_torch.accel.bvh import LEAF_SIZE
     results, max_err = {}, 0.0
-    total_ms = total_plain_ms = 0.0
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+             "ops_ms": 0.0}
+    d1_hits = None
     for name, (bvh, first_hit, o, d, tmin, tmax, act) in \
             ray_classes(sess).items():
         o, d = o.contiguous(), d.contiguous()
@@ -146,13 +249,24 @@ def phase_kernel_vs_plain(sess):
         ms, got = cuda_ms(kernel, repeat=3)
         plain_ms, ref = cuda_ms(lambda: traverse.traverse_plain(
             bvh, o, d, inv_d, tmin, tmax, act, first_hit))
-        row = {"rays": int(o.shape[0]), "active": int(act.sum()),
-               "ms": ms, "plain_ms": plain_ms}
+        internal, leaves, rows = walk_counts(bvh, first_hit, o, d, inv_d,
+                                             tmin, tmax, act)
+        n = int(o.shape[0])
+        nbytes = n * (RAY_IN_BYTES + HIT_BYTES) + rows * ROW_BYTES
+        ops = internal * bvh.width * SLAB_OPS + leaves * LEAF_SIZE * MT_OPS
+        b_ms, b_by = bound_ms(nbytes, ops)
+        row = {"rays": n, "active": int(act.sum()),
+               "ms": ms, "plain_ms": plain_ms, "internal_visits": internal,
+               "leaf_visits": leaves, "rows_touched": rows, "bytes": nbytes,
+               "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / ms}
         if first_hit:
             mism = int((got.hit != ref.hit).sum())
             row.update(vis_mismatches=mism, occluded=int(ref.hit.sum()))
             ok = mism == 0
         else:
+            if d1_hits is None:
+                d1_hits = got.tri_id
             differ = got.tri_id != ref.tri_id
             tie = differ & (got.t.view(torch.int32) == ref.t.view(torch.int32))
             bad = int((differ & ~tie).sum())
@@ -169,28 +283,38 @@ def phase_kernel_vs_plain(sess):
             row.update(tri_mismatches=bad, equal_t_ties=int(tie.sum()),
                        hits=int(ref.hit.sum()), max_abs_err=err)
             ok = bad == 0 and rel_ok
-        total_ms += ms
-        total_plain_ms += plain_ms
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+        total["bytes_ms"] += bound_ms(nbytes)[0]
+        total["ops_ms"] += bound_ms(0, ops)[0]
         results[name] = row
         log(f"{name}: " + ", ".join(
-            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in row.items()))
         if not ok:
             raise SystemExit(f"chip_smoke: kernel and plain traversal "
                              f"disagree on {name}: {row}")
-    return results, max_err, total_ms, total_plain_ms
+    total["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                         else "operations")
+    log(f"traversal, five classes: kernel {total['ms']:.3f} ms, plain "
+        f"{total['plain_ms']:.1f} ms, bound {total['bound_ms']:.4f} ms "
+        f"({total['bound_ms'] / total['ms'] * 100:.1f} % of the kernel's "
+        f"time; bytes terms {total['bytes_ms']:.4f} ms, operations terms "
+        f"{total['ops_ms']:.4f} ms)")
+    return results, max_err, total, d1_hits
 
 
 def phase_main_path(smi):
-    from dxrpathtracer_tpu_torch.accel import traverse
+    from dxrpathtracer_tpu_torch.accel import gather, traverse
     from dxrpathtracer_tpu_torch.app.session import RenderSession
     from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
-    w, h, frames = 1920, 1080, 10
+    (w, h), frames = FRAME_SIZE, 10
     settings = AppSettings(current_scene=Scenes.Sponza, benchmark_mode=True,
                            max_path_length=3)
     t0 = time.time()
-    sess = RenderSession(settings, w, h, device="cuda")
-    torch.cuda.synchronize()
+    sess = RenderSession(settings, w, h, device=DEVICE)
+    sync()
     init_s = time.time() - t0
     log(f"main path: init {init_s:.2f} s ({sess.scene.num_triangles} "
         f"triangles, W8 {sess.bvh.num_rows} rows, W32 "
@@ -198,25 +322,28 @@ def phase_main_path(smi):
 
     checks = phase_kernel_vs_plain(sess)
 
-    traverse.KERNEL_LAUNCHES = 0
+    traverse.KERNEL_LAUNCHES = gather.KERNEL_LAUNCHES = 0
     t0 = time.time()
     sess.render_frame()
-    torch.cuda.synchronize()
+    sync()
     first_s = time.time() - t0
     dts = []
     for _ in range(frames):
         t0 = time.time()
         sess.render_frame()
-        torch.cuda.synchronize()
+        sync()
         dts.append(time.time() - t0)
-    launches = traverse.KERNEL_LAUNCHES
+    launches = {"traverse": traverse.KERNEL_LAUNCHES,
+                "row_gather": gather.KERNEL_LAUNCHES}
     accum = sess.accum
     if tuple(accum.shape) != (h, w, 3) or not bool(accum.isfinite().all()):
         raise SystemExit("chip_smoke: the accumulation is not a finite "
                          f"{h}x{w}x3 image")
-    if launches < 5 * (frames + 1):
+    if (launches["traverse"] < 5 * (frames + 1)
+            or launches["row_gather"] < frames + 1):
         raise SystemExit(f"chip_smoke: {launches} kernel launches in "
-                         f"{frames + 1} frames, want >= 5 per frame")
+                         f"{frames + 1} frames, want >= 5 traversals and "
+                         f">= 1 gather per frame")
     med = statistics.median(dts)
     spread = (max(dts) - min(dts)) / med * 100.0
     mrays = w * h * (1 + (settings.max_path_length - 1) * 2) / med / 1e6
@@ -228,9 +355,9 @@ def phase_main_path(smi):
             "card": smi}
     log(f"main path: first frame {first_s:.3f} s; {med * 1e3:.2f} ms/frame "
         f"(median of {frames}, spread {spread:.1f}%), {mrays:.1f} Mrays/s; "
-        f"{launches} kernel launches; accum mean {main['accum_mean']:.4f} "
+        f"kernel launches {launches}; accum mean {main['accum_mean']:.4f} "
         f"[{smi}]")
-    return main, checks, launches
+    return sess, main, checks, launches
 
 
 def phase_same_frame():
@@ -239,14 +366,15 @@ def phase_same_frame():
     settings = AppSettings(current_scene=Scenes.Sponza, benchmark_mode=True,
                            max_path_length=3)
     imgs = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (DEVICE, "cpu"):
         t0 = time.time()
-        sess = RenderSession(settings, 240, 135, device=dev)
+        sess = RenderSession(settings, *SAME_FRAME_SIZE, device=dev)
         sess.render_frame()
         imgs[dev] = sess.accum.cpu()
-        log(f"same frame 240x135 on {dev}: {time.time() - t0:.2f} s")
-    ref, got = imgs["cpu"], imgs["cuda"]
-    rel = float(((got - ref) ** 2).mean().sqrt() / (ref.abs().max() + 1e-9))
+        log(f"same frame {SAME_FRAME_SIZE} on {dev}: "
+            f"{time.time() - t0:.2f} s")
+    ref, got = imgs["cpu"], imgs[DEVICE]
+    rel = rel_rmse(got, ref)
     exact = float((got == ref).float().mean())
     log(f"same frame: rel RMSE cuda (kernel) vs cpu (plain) {rel:.3e}, "
         f"{exact:.4f} of values bit-equal")
@@ -256,22 +384,218 @@ def phase_same_frame():
     return {"rel_rmse": rel, "bit_equal_fraction": exact}
 
 
+def rel_rmse(got, ref):
+    return float(((got - ref) ** 2).mean().sqrt() / (ref.abs().max() + 1e-9))
+
+
+def phase_bake(smi):
+    """The bake main path, as `python -m dxrpathtracer_tpu_torch bake
+    --current-scene Sponza --resolution 4096 --atlas pair` drives it."""
+    from dxrpathtracer_tpu_torch.accel import gather, traverse
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.bake.baker import Baker
+    res, steps = BAKE_RES, 3
+    settings = AppSettings(current_scene=Scenes.Sponza)
+    t0 = time.time()
+    sess = RenderSession(settings, 8, 8)  # no device: the card
+    if sess.device.type != DEVICE:
+        raise SystemExit(f"chip_smoke: RenderSession defaulted to "
+                         f"{sess.device}")
+    init_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    baker = Baker(sess, resolution=res, atlas_mode="pair")
+    covered = int((baker.surface_maps["position"][..., 3] > 0).sum())
+    coverage = covered / (res * res)
+    log(f"bake: session init {init_s:.2f} s; atlas "
+        f"{baker.setup_s['atlas']:.3f} s, texel map "
+        f"{baker.setup_s['texel_map']:.2f} s (host), surface maps "
+        f"{baker.setup_s['surface_maps']:.3f} s; {covered} covered texels "
+        f"({coverage * 100:.1f} %), {len(baker._row0)} slabs of "
+        f"{baker._slab_rows} rows")
+    if coverage < 0.5:
+        raise SystemExit(f"chip_smoke: bake coverage {coverage:.3f} < 0.5")
+
+    traverse.KERNEL_LAUNCHES = gather.KERNEL_LAUNCHES = 0
+    t0 = time.time()
+    baker.bake_step()
+    sync()
+    first_s = time.time() - t0
+    dts = []
+    for _ in range(steps):
+        t0 = time.time()
+        baker.bake_step()
+        sync()
+        dts.append(time.time() - t0)
+    launches = {"traverse": traverse.KERNEL_LAUNCHES,
+                "row_gather": gather.KERNEL_LAUNCHES}
+    per_step = {k: v / (steps + 1) for k, v in launches.items()}
+    if not bool(baker.accum.isfinite().all()):
+        raise SystemExit("chip_smoke: the bake accumulation is not finite")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"chip_smoke: bake launches {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(dts)
+    spread = (max(dts) - min(dts)) / med * 100.0
+    mrays = covered * (1 + (settings.max_path_length - 1) * 2) / med / 1e6
+    log(f"bake: first step {first_s:.3f} s; {med:.3f} s/step (median of "
+        f"{steps}, spread {spread:.1f}%), {mrays:.1f} Mrays/s; launches per "
+        f"step {per_step}; peak device memory {peak_gib:.2f} GiB [{smi}]")
+
+    # denoisers on the 4096^2 lightmap (the learned net warms up on a crop:
+    # weight load and cuDNN set-up)
+    from dxrpathtracer_tpu_torch.render.learned_denoise import learned_denoise
+    maps = baker.surface_maps
+    learned_denoise(baker.lightmap()[:64, :64], maps["albedo"][:64, :64],
+                    maps["normal"][:64, :64])
+    denoise_ms = {}
+    for mode in ("median", "guided", "learned"):
+        sync()
+        t0 = time.time()
+        out = baker.denoised_lightmap(mode)
+        sync()
+        denoise_ms[mode] = (time.time() - t0) * 1e3
+        if tuple(out.shape) != (res, res, 3) or not bool(out.isfinite().all()):
+            raise SystemExit(f"chip_smoke: {mode} denoise is not a finite "
+                             f"{res}x{res}x3 map")
+    log(f"bake: denoise ms on {res}^2: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in denoise_ms.items()))
+    out = {"resolution": res, "atlas": "pair",
+           "path_length": settings.max_path_length,
+           "sqrt_num_samples": settings.sqrt_num_samples,
+           "session_init_s": init_s, "setup_s": baker.setup_s,
+           "covered_texels": covered, "coverage": coverage,
+           "slabs": len(baker._row0), "first_step_s": first_s,
+           "step_s": dts, "step_s_median": med, "spread_pct": spread,
+           "mrays_per_s": mrays, "kernel_launches": launches,
+           "launches_per_step": per_step, "peak_memory_gib": peak_gib,
+           "denoise_ms": denoise_ms,
+           "lightmap_mean": float(baker.lightmap().mean()), "card": smi}
+    return baker, out, launches
+
+
+def gather_case(name, table, idx, repeat):
+    from dxrpathtracer_tpu_torch.accel import gather
+    got = gather._launch_kernel(table, idx)
+    ref = gather.row_gather_plain(table, idx)
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        raise SystemExit(f"chip_smoke: gather kernel differs from plain on "
+                         f"{name}")
+    err = float((got - ref).abs().max()) if len(idx) else 0.0
+    ms, _ = cuda_ms(lambda: gather._launch_kernel(table, idx), repeat)
+    plain_ms, _ = cuda_ms(lambda: gather.row_gather_plain(table, idx), repeat)
+    library_ms, _ = cuda_ms(lambda: torch.index_select(table, 0, idx), repeat)
+    n, width = int(idx.shape[0]), int(table.shape[1])
+    distinct = int(torch.unique(idx).numel())
+    # the table's rows that these indices touch are read once, the indices
+    # once and the output written once
+    b_ms, b_by = bound_ms(distinct * width * 4 + n * 4 + n * width * 4)
+    row = {"rows": int(table.shape[0]), "n": n, "width": width,
+           "dtype": str(table.dtype).replace("torch.", ""),
+           "distinct_rows": distinct, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "mrows_per_s": n / ms / 1e3,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+           # every gathered row counted as read from memory
+           "n_rows_bound_ms": bound_ms(n * width * 4 * 2 + n * 4)[0],
+           "max_abs_err": err}
+    log(f"gather {name}: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in row.items()))
+    return row
+
+
+def phase_gather(frame_sess, d1_hits, baker):
+    """Row-gather kernel against its plain version and index_select."""
+    from dxrpathtracer_tpu_torch.accel.gather import row_gather
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    cases = {}
+    rows, n = MICROBENCH_ROWS, MICROBENCH_N
+    for width in (32, 128):
+        table = torch.randn((rows, width), generator=gen, device=DEVICE)
+        idx = torch.randint(0, rows, (n,), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+        cases[f"a_microbench_w{width}"] = gather_case(
+            f"(a) microbench width {width}", table, idx, repeat=20)
+    shade_idx = torch.clamp_min(d1_hits, 0).to(torch.int32).contiguous()
+    cases["b_shading_row"] = gather_case(
+        "(b) shading row", frame_sess.scene.tri_shade, shade_idx, repeat=10)
+    scene = baker.session.scene
+    tri_map = torch.from_numpy(baker.texel_map[0].reshape(-1)).to(DEVICE)
+    safe_tri = torch.clamp_min(tri_map, 0)
+    corner = row_gather(scene.tri_idx, safe_tri)[:, 0].contiguous()
+    mat = row_gather(scene.tri_material[:, None], safe_tri)[:, 0].contiguous()
+    for name, table, idx in (("tri_idx", scene.tri_idx, safe_tri),
+                             ("positions", scene.positions, corner),
+                             ("uvs", scene.uvs, corner),
+                             ("tri_material", scene.tri_material[:, None],
+                              safe_tri),
+                             ("packed_meta", scene.packed_meta, mat)):
+        cases[f"c_surface_{name}"] = gather_case(
+            f"(c) surface map {name}", table, idx, repeat=5)
+    return cases
+
+
+def phase_same_bake():
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.bake.baker import Baker
+    settings = AppSettings(current_scene=Scenes.BoxTest)
+    accums = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.time()
+        baker = Baker(RenderSession(settings, 8, 8, device=dev),
+                      resolution=64, atlas_mode="charts",
+                      atlas_opts={"grid_cols": 512})
+        for _ in range(2):
+            baker.bake_step()
+        accums[dev] = baker.accum.cpu()
+        log(f"same bake BoxTest 64^2 x 2 on {dev}: {time.time() - t0:.2f} s")
+    got, ref = accums[DEVICE], accums["cpu"]
+    count_equal = bool(torch.equal(got[..., 3], ref[..., 3]))
+    lm = lambda a: torch.where(a[..., 3:] > 0, a[..., :3]
+                               / torch.clamp_min(a[..., 3:], 1.0), 0.0)
+    rel = rel_rmse(lm(got), lm(ref))
+    log(f"same bake: rel RMSE cuda (kernels) vs cpu (plain) {rel:.3e}, "
+        f"validCount equal {count_equal}")
+    if not (rel <= 1e-4 and count_equal and bool(got.isfinite().all())):
+        raise SystemExit(f"chip_smoke: kernel bake differs from plain bake "
+                         f"(rel RMSE {rel:.3e}, validCount equal "
+                         f"{count_equal})")
+    return {"rel_rmse": rel, "valid_count_equal": count_equal}
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
     build = phase_build()
-    main_path, (classes, max_err, ms, plain_ms), launches = \
+    frame_sess, main_path, (classes, max_err, trav, d1_hits), frame_launches = \
         phase_main_path(smi)
     same = phase_same_frame()
-    kernels = {"kernels": [{
-        "name": "traverse", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]}
+    baker, bake, bake_launches = phase_bake(smi)
+    gathers = phase_gather(frame_sess, d1_hits, baker)
+    same_bake = phase_same_bake()
+    shade = gathers["b_shading_row"]
+    kernels = {"kernels": [
+        {"name": "traverse", "route": "cuda", "source": TRAVERSE_SOURCE,
+         "replaces": TRAVERSE_REPLACES,
+         "launches": frame_launches["traverse"] + bake_launches["traverse"],
+         "max_abs_err": max_err, "ms": trav["ms"],
+         "plain_ms": trav["plain_ms"], "bound_ms": trav["bound_ms"],
+         "bound_by": trav["bound_by"], "library_ms": None},
+        {"name": "row_gather", "route": "cuda", "source": GATHER_SOURCE,
+         "replaces": GATHER_REPLACES,
+         "launches": (frame_launches["row_gather"]
+                      + bake_launches["row_gather"]),
+         "max_abs_err": max(c["max_abs_err"] for c in gathers.values()),
+         "ms": shade["ms"], "plain_ms": shade["plain_ms"],
+         "bound_ms": shade["bound_ms"], "bound_by": shade["bound_by"],
+         "library_ms": shade["library_ms"]}]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "build": build, "ray_classes": classes,
-                   "main_path": main_path, "same_frame": same, **kernels},
-                  f, indent=1)
+                   "traversal_total": trav, "main_path": main_path,
+                   "same_frame": same, "bake": bake, "gather": gathers,
+                   "same_bake": same_bake, **kernels}, f, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,12 +23,11 @@ plain version for CPU tensors; they route on the device alone.
 
 import ctypes
 import dataclasses
-import os
 from pathlib import Path
 
 import torch
 
-from ..buildlib import build_shared_library
+from ..buildlib import build_shared_library, nvcc
 from .bvh import ALPHA_TID_BIT, LEAF_SIZE, RECORD, FlatBVH
 
 KERNEL_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "traverse.cu"
@@ -75,22 +74,12 @@ _kernel = None
 BUILD_LOG = ""  # nvcc's -Xptxas -v report from the build in this process
 
 
-def _nvcc() -> str:
-    import shutil
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or shutil.which("nvcc", path=f"{cuda_home}/bin")
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the traversal kernel builds with "
-                           "the CUDA toolkit")
-    return nvcc
-
-
 def kernel_library():
     """csrc/traverse.cu compiled for sm_90a, built at first use."""
     global _kernel, BUILD_LOG
     if _kernel is None:
         path, BUILD_LOG = build_shared_library(
-            KERNEL_SOURCE, "traverse", [_nvcc(), *NVCC_FLAGS])
+            KERNEL_SOURCE, "traverse", [nvcc(), *NVCC_FLAGS])
         lib = ctypes.CDLL(str(path))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.dxrpt_traverse.restype = ctypes.c_int

@@ -30,14 +30,17 @@ class RenderSession:
     enable_clear_cut, enable_mxu_traversal) choose among exact alternates of
     that walk; the port routes per-ray whatever their values. The frame
     renders in one pass, with no row slabs.
+
+    It runs on the card unless the caller passes device="cpu"; with no card
+    it raises rather than carry on on the CPU.
     """
 
     def __init__(self, settings: AppSettings | None = None,
-                 width: int = 1920, height: int = 1080, device="cpu"):
+                 width: int = 1920, height: int = 1080, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("RenderSession: CUDA was asked for but is not "
-                               "available")
+            raise RuntimeError("RenderSession: no CUDA device (pass "
+                               "device='cpu' to run the plain versions)")
         self.width = width
         self.height = height
         settings = settings or AppSettings()
@@ -52,6 +55,9 @@ class RenderSession:
         # W8 for depth-1 rays, W32 (bf16 boxes) for every deeper ray.
         self.bvh = build_bvh_for_scene(scene, width=8).to(self.device)
         self.bvh_ray = build_bvh_for_scene(scene, width=32).to(self.device)
+        # The scene on the host (CPU tensors; np.asarray views them) that
+        # the lightmap atlas builders read, as the JAX package's scene_host.
+        self.scene_host = scene
         self.scene = scene.to(self.device)
 
         self.camera = FirstPersonCamera(aspect=width / height)

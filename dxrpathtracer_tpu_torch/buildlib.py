@@ -15,6 +15,17 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
 
+def nvcc() -> str:
+    """The CUDA compiler: on PATH, else under $CUDA_HOME (/usr/local/cuda)."""
+    import shutil
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or shutil.which("nvcc", path=f"{cuda_home}/bin")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build with the "
+                           "CUDA toolkit")
+    return path
+
+
 def build_shared_library(src: Path, stem: str, command: list[str],
                          timeout: float = 600.0) -> tuple[Path, str]:
     """Compile `src` with `command + ["-o", out, src]` unless the keyed

@@ -2,9 +2,12 @@
 
 The parity tests build one scene, its BVH tables, the sky cube and the frame
 constants with dxrpathtracer_tpu, read them back as numpy arrays, and feed the
-very same values to both packages through these functions. This module
-imports no JAX: callers pass plain numpy arrays and Python numbers.
+very same values to both packages through these functions. The learned
+denoiser's weights are the JAX package's data file, read with np.load. This
+module imports no JAX: callers pass plain numpy arrays and Python numbers.
 """
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,3 +51,30 @@ def frame_from_numpy(inv_view_projection, camera_pos_ws, sun_direction_ws,
         cos_sun_angular_radius=f32(cos_sun_angular_radius).reshape(()),
         sin_sun_angular_radius=f32(sin_sun_angular_radius).reshape(()),
         curr_sample_idx=int(curr_sample_idx))
+
+
+# The learned denoiser's trained weights, shipped with the JAX package.
+DENOISER_WEIGHTS = (Path(__file__).resolve().parent.parent / "dxrpathtracer_tpu"
+                    / "data" / "denoiser_weights.npz")
+
+
+def load_denoiser_weights() -> list[tuple[np.ndarray, np.ndarray]]:
+    """[(w HWIO, b), ...] from the JAX package's weight file (num_layers,
+    w0, b0, ...)."""
+    with np.load(DENOISER_WEIGHTS) as z:
+        return [(z[f"w{i}"], z[f"b{i}"]) for i in range(int(z["num_layers"]))]
+
+
+def denoiser_params_from_numpy(params) -> dict[str, torch.Tensor]:
+    """The JAX package's [(w HWIO, b), ...] as render.learned_denoise
+    .DenoiserNet's state dict (conv weights OIHW)."""
+    state = {}
+    for i, (w, b) in enumerate(params):
+        w = np.asarray(w, np.float32)
+        if w.ndim != 4 or w.shape[:2] != (3, 3):
+            raise ValueError(f"layer {i}: want a 3x3 HWIO kernel, got "
+                             f"{w.shape}")
+        state[f"layers.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+        state[f"layers.{i}.bias"] = torch.from_numpy(np.array(b, np.float32))
+    return state

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..accel.gather import row_gather
 from ..accel.traverse import any_hit, closest_hit
 from ..app.settings import AppSettings
 from ..core import brdf as brdf_lib
@@ -72,7 +73,8 @@ def _fetch_shade_inputs(scene, tri_id, u, v):
     barycentric lerp over the three 14-wide vertex blocks, material index and
     packed material meta from the same row (GetHitSurface,
     RayTrace.hlsl:444-464)."""
-    rec = scene.tri_shade[torch.clamp_min(tri_id, 0).long()]  # (n, 64)
+    rec = row_gather(scene.tri_shade,
+                     torch.clamp_min(tri_id, 0).to(torch.int32))  # (n, 64)
     w = (1.0 - u - v)[..., None]
     K = TRI_SHADE_VTX
     blk = (rec[:, 0:K] * w + rec[:, K:2 * K] * u[..., None]
@@ -132,19 +134,29 @@ def _depth_schedule(settings: AppSettings):
     return out
 
 
-def _path_state0(ray_o, ray_d, t_max):
+def _path_state0(ray_o, ray_d, t_max, t_min0=0.0, active0=None,
+                 initial_is_diffuse: bool = False):
+    """The depth-1 carry. t_min0 is a scalar or (n,); active0 (n,) bool or
+    None (all lanes); initial_is_diffuse seeds prev_is_diffuse (the bake's
+    IsDiffuse = true, Baking.hlsl:395-409)."""
     n = ray_o.shape[0]
     dev = ray_o.device
     f32 = torch.float32
+    if isinstance(t_min0, torch.Tensor):
+        t_min = t_min0.to(f32)
+    else:
+        t_min = torch.full((n,), float(t_min0), dtype=f32, device=dev)
     return dict(
         total=torch.zeros((n, 3), dtype=f32, device=dev),
         beta=torch.ones((n, 3), dtype=f32, device=dev),
-        active=torch.ones(n, dtype=torch.bool, device=dev),
-        prev_is_diffuse=torch.zeros(n, dtype=torch.bool, device=dev),
+        active=(torch.ones(n, dtype=torch.bool, device=dev)
+                if active0 is None else active0),
+        prev_is_diffuse=torch.full((n,), bool(initial_is_diffuse),
+                                   dtype=torch.bool, device=dev),
         prev_roughness=torch.zeros(n, dtype=f32, device=dev),
         ray_o=ray_o,
         ray_d=ray_d,
-        t_min=torch.zeros(n, dtype=f32, device=dev),
+        t_min=t_min,
         t_max=t_max.to(f32),
     )
 
@@ -436,23 +448,30 @@ def _apply_vertex(settings: AppSettings, sky_cube, depth: int, flags, state,
 
 def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                 frame: FrameConstants, ray_o, ray_d, t_max, pixel_idx,
-                total_num_pixels: int, first_set_idx: int = 1):
+                total_num_pixels: int, first_set_idx: int = 1,
+                initial_is_diffuse: bool = False, t_min0=0.0, active0=None,
+                sample_idx=None):
     """Trace a wavefront of depth-1 rays to completion; returns (N, 3)
     radiance clamped to [0, FP16Max].
 
     `bvh` (W8) answers depth-1 closest hits and depth-1 sun visibility;
     `ray_bvh` (W32) every other traversal. `first_set_idx` is the CMJ sample
-    set of the first PathTrace vertex (raygen consumed set 0)."""
+    set of the first PathTrace vertex (raygen consumed set 0). The baker
+    passes initial_is_diffuse=True, t_min0=1e-4, its coverage as `active0`
+    and its own sample counter as `sample_idx` (BakeRayGen,
+    Baking.hlsl:395-409); otherwise the CMJ index is the frame's."""
     s = settings
     _check_supported(scene, s)
-    state = _path_state0(ray_o, ray_d, t_max)
+    cmj_sample_idx = frame.curr_sample_idx if sample_idx is None else sample_idx
+    state = _path_state0(ray_o, ray_d, t_max, t_min0, active0,
+                         initial_is_diffuse)
     for depth, flags in _depth_schedule(s):
         table = bvh if depth == 1 else ray_bvh
         rec = closest_hit(table, state["ray_o"], state["ray_d"],
                           state["t_min"], state["t_max"], state["active"])
         state, reqs, mid = _shade_vertex(
             scene, sky_cube, s, frame, depth, flags, state, rec, pixel_idx,
-            total_num_pixels, first_set_idx, frame.curr_sample_idx)
+            total_num_pixels, first_set_idx, cmj_sample_idx)
         if flags["early_stop"]:
             break
         vis_list = []

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..accel.gather import row_gather
 from .types import MaterialTable
 
 # Decoded 1x1 default texel values from the reference's Content/Textures/*.dds.
@@ -116,6 +117,21 @@ class AtlasBuilder:
             base += h * w
         texels = np.concatenate(rows, axis=0) if rows else np.zeros((1, 4), np.float32)
         return texels, metas
+
+
+def sample_bilinear_wrap(texels, meta, tex_idx, uv):
+    """Bilinear, wrap-addressed fetch at mip 0 for a batch of (index, uv):
+    `sample_bilinear_wrap` of the JAX package (HLSL
+    `tex.SampleLevel(MeshSampler, uv, 0.0f)` with a linear wrap sampler).
+
+    meta: (K, C) int32 rows whose columns 0:3 are a texture's (base, w, h):
+    the texture meta (indexed by texture) or, as the port's texel store
+    keeps them, the packed material meta, whose albedo slot sits at 0:3
+    (indexed by material: one row gather where the JAX package takes two).
+    tex_idx: (...,) int; uv: (..., 2) f32 -> (..., 4) f32."""
+    m = row_gather(meta, tex_idx.reshape(-1).to(torch.int32))
+    m = m.reshape(*tex_idx.shape, meta.shape[1])
+    return bilinear_from_meta(texels, m[..., 0], m[..., 1], m[..., 2], uv)
 
 
 def bilinear_from_meta(texels, base, w, h, uv):

@@ -102,12 +102,22 @@ def test_sky_cache_matches(sun, albedo, turbidity):
 
 
 def test_renders_with_jax_blocked():
-    """`import dxrpathtracer_tpu_torch` and a BoxTest frame with every
-    import of jax made to fail."""
+    """`import dxrpathtracer_tpu_torch`, every module of the port, a BoxTest
+    frame and a tiny BoxTest bake with every import of jax made to fail."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import dxrpathtracer_tpu_torch\n"
+        "import dxrpathtracer_tpu_torch.__main__\n"
+        "from dxrpathtracer_tpu_torch import convert\n"
+        "from dxrpathtracer_tpu_torch.accel import gather\n"
+        "from dxrpathtracer_tpu_torch.app import cli\n"
+        "from dxrpathtracer_tpu_torch.bake import charts, lightmap_uv\n"
+        "from dxrpathtracer_tpu_torch.bake import surface_map\n"
+        "from dxrpathtracer_tpu_torch.bake.baker import Baker\n"
+        "from dxrpathtracer_tpu_torch.render import (denoise, film,"
+        " learned_denoise, postfx)\n"
+        "from dxrpathtracer_tpu_torch.tools import profile_bake\n"
         "from dxrpathtracer_tpu_torch.app.session import RenderSession\n"
         "from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes\n"
         "s = RenderSession(AppSettings(current_scene=Scenes.BoxTest), 16, 16,"
@@ -115,6 +125,11 @@ def test_renders_with_jax_blocked():
         "assert s.render_frame()\n"
         "assert s.accum.shape == (16, 16, 3) and bool(s.accum.isfinite().all())\n"
         "assert float(s.accum.mean()) > 0\n"
+        "b = Baker(s, resolution=16, atlas_mode='pair')\n"
+        "b.bake_step()\n"
+        "lm = b.denoised_lightmap('learned')\n"
+        "assert lm.shape == (16, 16, 3) and bool(lm.isfinite().all())\n"
+        "assert float(b.accum[..., 3].sum()) > 0\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " m.split('.')[0] in"
         " ('jax', 'jaxlib', 'dxrpathtracer_tpu')]\n"
