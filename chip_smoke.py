@@ -12,14 +12,21 @@ failure:
      limit as nvidia-smi reports them;
   2. build: compiles the traversal kernel (csrc/traverse.cu), the row-gather
      kernel (csrc/gather.cu) and the native SAH builder from the checkout, all
-     at once, with the seconds each took and ptxas' register report;
+     at once, with the seconds each took; for each (width, first_hit)
+     instantiation of the traversal kernel, ptxas' registers, stack frame
+     and spills and the warps one SM holds at once (the persistent grid);
+     the W32 instantiations must have no stack frame and no spills;
   3. traversal kernel against plain: the kernel and its plain torch version,
-     both on the card, on the five ray classes of one plain-route 1080p
+     both on the card, (a) on the five ray classes of one plain-route 1080p
      sample (depth-1 closest on W8, depth-1 sun on W8, depth-2 closest, sun
-     and terminal on W32): 0 visibility mismatches, 0 tri-id mismatches
-     outside equal-t ties, t/u/v within rtol 1e-6; times of both; the plain
-     walk counts its internal and leaf visits and the distinct table rows it
-     touches, which give each class its bound (BOUND below);
+     and terminal on W32): 0 lanes whose tri id, t, u or v differ in any
+     bit; times of both, M visits/s; the plain walk counts its internal and
+     leaf visits, the filled child slots and triangles of the records it
+     visits and the distinct table rows it touches, which give each class
+     its bound (BOUND below); (b) on the adversarial cases of
+     dxrpathtracer_tpu_torch/tools/traverse_cases.py (equal-t ties, coplanar
+     boxes under axis-aligned rays, hits at t = +-0, inactive rays), W8 and
+     W32, closest and any hit: again 0 lanes that differ in any bit;
   4. frame main path: RenderSession on the card; init and first-frame
      seconds, median ms/frame over 10 frames, Mrays/s by bench.py's formula
      W*H*(1+(L-1)*2)/dt; the accumulation must be finite, the traversal
@@ -44,12 +51,19 @@ failure:
      card and on the CPU; relative RMSE <= 1e-4 and validCount equal.
 
 BOUND: the least time the card could take, the larger of the bytes moved
-(each input read once, each output written once) over 3.35 TB/s and the f32
-operations over 67 TFLOP/s (NVIDIA H100 SXM data sheet). A traversal class
-moves its rays (45 B in, 16 B out each) and the distinct 512 B table rows its
-walk touches, and does SLAB_OPS per child slot of each internal visit and
-MT_OPS per triangle of each leaf visit. A gather of n rows of `width` words
-moves its distinct rows, its indices and its output:
+(each input read once, each output written once) over 3.35 TB/s (NVIDIA H100
+SXM data sheet) and the f32 operations over 33.5 T operations/s. The data
+sheet's 67 TFLOP/s counts a fused multiply-add as two operations; the
+traversal kernel is built --fmad=false (every product rounded on its own, as
+the reference rounds it), so it cannot fuse, and its slab and
+Moller-Trumbore work is subtractions, products, min/max and comparisons:
+one f32 operation per lane per clock, 132 SMs x 128 lanes x 1.98 GHz. A
+traversal class moves its rays (45 B in, 16 B out each) and the distinct
+512 B table rows its walk touches, and does SLAB_OPS per child slot of each
+internal visit and MT_OPS per triangle of each leaf visit, every slot of
+the record, as the kernel tests them (the script prints the share of those
+operations that falls on empty slots: padding). A gather of n
+rows of `width` words moves its distinct rows, its indices and its output:
 (distinct*width + n + n*width)*4 B; beside it the script prints the time of
 n*width*4*2 + n*4 B, every gathered row counted as a read from memory.
 
@@ -73,7 +87,6 @@ TRAVERSE_SOURCE = "dxrpathtracer_tpu_torch/csrc/traverse.cu"
 TRAVERSE_REPLACES = "dxrpathtracer_tpu/accel/pallas_body.py:52"
 GATHER_SOURCE = "dxrpathtracer_tpu_torch/csrc/gather.cu"
 GATHER_REPLACES = "tools/microbench_dma_gather.py:28"
-RTOL = 1e-6
 # Where and at what size the phases run: the card at full size. (A rehearsal
 # on the CPU may shrink them; the card's run never does.)
 DEVICE = "cuda"
@@ -82,7 +95,7 @@ SAME_FRAME_SIZE = (240, 135)
 BAKE_RES = 4096
 MICROBENCH_ROWS, MICROBENCH_N = 32768, 1 << 20
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 132 * 128 * 1.98e9  # no FMA: one f32 operation/lane/clock
 # f32 operations of csrc/traverse.cu per child slot of an internal visit:
 # 6 subtractions and 6 products (slabs), 6 min/max for t_near and 6 for
 # t_far, and 3 comparisons (bounds valid, t_near <= t_far, nearest key).
@@ -160,12 +173,54 @@ def phase_build():
         f"{secs['traverse_s']:.2f} s, gather.cu (nvcc sm_90a) "
         f"{secs['gather_s']:.2f} s, sah_builder.cpp (g++) "
         f"{secs['sah_builder_s']:.2f} s")
-    for name, report in (("traverse", traverse.BUILD_LOG),
-                         ("gather", gather.BUILD_LOG)):
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    for line in gather.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "stack frame" in line:
+            log(f"  ptxas gather: {line.strip()}")
+    kernels = ptxas_report(traverse.BUILD_LOG)
+    for (width, first_hit), row in sorted(kernels.items()):
+        row["resident_warps_per_sm"] = traverse.resident_warps(width,
+                                                               first_hit)
+        log(f"  traverse W{width} {'any' if first_hit else 'closest'}: "
+            + ", ".join(f"{k} {v}" for k, v in row.items()))
+        if width == 32 and (row["stack_frame_bytes"] or row["spill_stores"]
+                            or row["spill_loads"]):
+            raise SystemExit(f"chip_smoke: the W32 traversal kernel uses "
+                             f"local memory: {row}")
+    if sorted(kernels) != [(8, False), (8, True), (32, False), (32, True)]:
+        raise SystemExit(f"chip_smoke: ptxas reported traversal kernels "
+                         f"{sorted(kernels)}")
+    secs["traverse_kernels"] = {f"W{w}_{'any' if fh else 'closest'}": row
+                                for (w, fh), row in kernels.items()}
     return secs
+
+
+def ptxas_report(log_text):
+    """{(width, first_hit): registers, stack frame and spills} of each
+    traversal kernel instantiation in nvcc's -Xptxas -v output (warp_kernel
+    walks W32 tables, thread_kernel W8)."""
+    import re
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '\S*(warp|thread)_kernelILb"
+                      r"([01])E", line)
+        if m:
+            cur = (32 if m.group(1) == "warp" else 8, m.group(2) == "1")
+            out[cur] = {}
+            continue
+        if "Compiling entry function" in line:
+            cur = None
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_frame_bytes=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def ray_classes(sess):
@@ -208,25 +263,47 @@ def ray_classes(sess):
 
 
 def walk_counts(bvh, first_hit, o, d, inv_d, tmin, tmax, act):
-    """(internal visits, leaf visits, distinct rows touched) of the plain
-    walk on these rays: traverse_plain's loop, counting as it steps."""
+    """{internal and leaf visits, filled child slots and triangles of the
+    visited records, distinct rows touched} of the plain walk on these rays:
+    traverse_plain's loop, counting as it steps. A slot is filled where its
+    box is not inverted, a triangle where its tri id is >= 0; the rest are
+    padding that the kernel tests all the same."""
     from dxrpathtracer_tpu_torch.accel import traverse
+    from dxrpathtracer_tpu_torch.accel.bvh import LEAF_SIZE
     s = traverse.init_lanes(bvh, o, d, inv_d, tmin, tmax, act)
     done = bvh.num_rows
-    internal = torch.zeros((), dtype=torch.int64, device=o.device)
-    leaf = torch.zeros_like(internal)
+    # per row, read both ways: filled child slots, filled leaf triangles
+    slots = sum((lo[0] <= hi[0]).sum(1) for lo, hi, *_ in
+                traverse._child_banks(bvh, bvh.table))
+    tris = (bvh.table[:, 9 * LEAF_SIZE:10 * LEAF_SIZE].view(torch.int32)
+            >= 0).sum(1)
+    zero = torch.zeros((), dtype=torch.int64, device=o.device)
+    n = {k: zero.clone() for k in ("internal", "leaf", "slots", "tris")}
     touched = torch.zeros(bvh.num_rows, dtype=torch.bool, device=o.device)
     max_iters = bvh.num_rows * 2 + bvh.stack_depth + 4
     it = 0
     while it < max_iters and bool((s.cur != done).any()):
         alive = s.cur != done
         is_leaf = alive & (s.cur < 0)
-        internal += (alive & ~is_leaf).sum()
-        leaf += is_leaf.sum()
-        touched[torch.where(is_leaf, ~s.cur, s.cur)[alive].long()] = True
+        is_int = alive & ~is_leaf
+        row = torch.where(is_leaf, ~s.cur, s.cur)
+        n["internal"] += is_int.sum()
+        n["leaf"] += is_leaf.sum()
+        n["slots"] += slots[row[is_int].long()].sum()
+        n["tris"] += tris[row[is_leaf].long()].sum()
+        touched[row[alive].long()] = True
         s = traverse.traverse_step_plain(bvh, s, first_hit)
         it += 1
-    return int(internal), int(leaf), int(touched.sum())
+    return {**{k: int(v) for k, v in n.items()}, "rows": int(touched.sum())}
+
+
+def hit_mismatches(got, ref):
+    """Lanes whose tri id, t, u or v differ in any bit."""
+    bad = got.tri_id != ref.tri_id
+    for f in ("t", "u", "v"):
+        bad |= (getattr(got, f).view(torch.int32)
+                != getattr(ref, f).view(torch.int32))
+    return int(bad.sum())
 
 
 def phase_kernel_vs_plain(sess):
@@ -234,7 +311,7 @@ def phase_kernel_vs_plain(sess):
     from dxrpathtracer_tpu_torch.accel.bvh import LEAF_SIZE
     results, max_err = {}, 0.0
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-             "ops_ms": 0.0}
+             "ops_ms": 0.0, "filled_ops_ms": 0.0}
     d1_hits = None
     for name, (bvh, first_hit, o, d, tmin, tmax, act) in \
             ray_classes(sess).items():
@@ -249,45 +326,41 @@ def phase_kernel_vs_plain(sess):
         ms, got = cuda_ms(kernel, repeat=3)
         plain_ms, ref = cuda_ms(lambda: traverse.traverse_plain(
             bvh, o, d, inv_d, tmin, tmax, act, first_hit))
-        internal, leaves, rows = walk_counts(bvh, first_hit, o, d, inv_d,
-                                             tmin, tmax, act)
+        c = walk_counts(bvh, first_hit, o, d, inv_d, tmin, tmax, act)
         n = int(o.shape[0])
-        nbytes = n * (RAY_IN_BYTES + HIT_BYTES) + rows * ROW_BYTES
-        ops = internal * bvh.width * SLAB_OPS + leaves * LEAF_SIZE * MT_OPS
+        nbytes = n * (RAY_IN_BYTES + HIT_BYTES) + c["rows"] * ROW_BYTES
+        ops = (c["internal"] * bvh.width * SLAB_OPS
+               + c["leaf"] * LEAF_SIZE * MT_OPS)
+        filled_ops = c["slots"] * SLAB_OPS + c["tris"] * MT_OPS
         b_ms, b_by = bound_ms(nbytes, ops)
+        visits = c["internal"] + c["leaf"]
         row = {"rays": n, "active": int(act.sum()),
-               "ms": ms, "plain_ms": plain_ms, "internal_visits": internal,
-               "leaf_visits": leaves, "rows_touched": rows, "bytes": nbytes,
-               "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
-               "bound_share": b_ms / ms}
+               "ms": ms, "plain_ms": plain_ms,
+               "internal_visits": c["internal"], "leaf_visits": c["leaf"],
+               "mvisits_per_s": visits / ms / 1e3,
+               "slots_filled_per_internal": c["slots"] / max(c["internal"], 1),
+               "tris_filled_per_leaf": c["tris"] / max(c["leaf"], 1),
+               "rows_touched": c["rows"], "bytes": nbytes, "ops": ops,
+               "padding_ops_share": 1.0 - filled_ops / max(ops, 1),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+               "mismatches": hit_mismatches(got, ref),
+               "hits": int(ref.hit.sum())}
         if first_hit:
-            mism = int((got.hit != ref.hit).sum())
-            row.update(vis_mismatches=mism, occluded=int(ref.hit.sum()))
-            ok = mism == 0
-        else:
-            if d1_hits is None:
-                d1_hits = got.tri_id
-            differ = got.tri_id != ref.tri_id
-            tie = differ & (got.t.view(torch.int32) == ref.t.view(torch.int32))
-            bad = int((differ & ~tie).sum())
-            same = ~differ
-            errs = [(getattr(got, f)[same] - getattr(ref, f)[same]).abs()
-                    for f in ("t", "u", "v")]
-            hit = same & ref.hit
-            err = max(float((got.t - ref.t)[hit].abs().max()) if hit.any()
-                      else 0.0, float(errs[1].max()), float(errs[2].max()))
-            rel_ok = all(torch.allclose(getattr(got, f)[same],
-                                        getattr(ref, f)[same], rtol=RTOL,
-                                        atol=0.0) for f in ("t", "u", "v"))
-            max_err = max(max_err, err)
-            row.update(tri_mismatches=bad, equal_t_ties=int(tie.sum()),
-                       hits=int(ref.hit.sum()), max_abs_err=err)
-            ok = bad == 0 and rel_ok
+            row["vis_mismatches"] = int((got.hit != ref.hit).sum())
+        elif d1_hits is None:
+            d1_hits = got.tri_id
+        both = got.hit & ref.hit
+        if bool(both.any()):
+            max_err = max([max_err] + [
+                float((getattr(got, f) - getattr(ref, f))[both].abs().max())
+                for f in ("t", "u", "v")])
+        ok = row["mismatches"] == 0
         total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += b_ms
         total["bytes_ms"] += bound_ms(nbytes)[0]
         total["ops_ms"] += bound_ms(0, ops)[0]
+        total["filled_ops_ms"] += bound_ms(0, filled_ops)[0]
         results[name] = row
         log(f"{name}: " + ", ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
@@ -301,8 +374,41 @@ def phase_kernel_vs_plain(sess):
         f"{total['plain_ms']:.1f} ms, bound {total['bound_ms']:.4f} ms "
         f"({total['bound_ms'] / total['ms'] * 100:.1f} % of the kernel's "
         f"time; bytes terms {total['bytes_ms']:.4f} ms, operations terms "
-        f"{total['ops_ms']:.4f} ms)")
+        f"{total['ops_ms']:.4f} ms, of which filled slots "
+        f"{total['filled_ops_ms']:.4f} ms)")
     return results, max_err, total, d1_hits
+
+
+def phase_adversarial():
+    """The kernel against the plain walk, bit for bit, on the adversarial
+    cases (tools/traverse_cases.py) at W8 and W32, closest and any hit."""
+    from dxrpathtracer_tpu_torch.accel import traverse
+    from dxrpathtracer_tpu_torch.accel.bvh import build_bvh
+    from dxrpathtracer_tpu_torch.tools.traverse_cases import cases
+    results = {}
+    for case, (tris, rays) in cases().items():
+        r = {f: torch.from_numpy(a).to(DEVICE) for f, a in rays.items()}
+        inv_d = traverse.safe_inv(r["d"]).contiguous()
+        args = (r["o"], r["d"], inv_d, r["tmin"], r["tmax"], r["active"])
+        for width in (8, 32):
+            bvh = build_bvh(*tris, width=width).to(DEVICE)
+            for first_hit in (False, True):
+                got = traverse._launch_kernel(bvh, *args, first_hit)
+                ref = traverse.traverse_plain(bvh, *args, first_hit)
+                name = f"{case}_W{width}_{'any' if first_hit else 'closest'}"
+                row = {"rays": int(r["o"].shape[0]),
+                       "active": int(r["active"].sum()),
+                       "hits": int(ref.hit.sum()),
+                       "zero_t_hits": int((ref.hit & (ref.t == 0)).sum()),
+                       "mismatches": hit_mismatches(got, ref)}
+                results[name] = row
+                log(f"adversarial {name}: " + ", ".join(
+                    f"{k}={v}" for k, v in row.items()))
+                if row["mismatches"]:
+                    raise SystemExit(f"chip_smoke: kernel and plain traversal "
+                                     f"disagree on the adversarial case "
+                                     f"{name}: {row}")
+    return results
 
 
 def phase_main_path(smi):
@@ -568,6 +674,7 @@ def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
     build = phase_build()
+    adversarial = phase_adversarial()
     frame_sess, main_path, (classes, max_err, trav, d1_hits), frame_launches = \
         phase_main_path(smi)
     same = phase_same_frame()
@@ -593,9 +700,10 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "build": build, "ray_classes": classes,
-                   "traversal_total": trav, "main_path": main_path,
-                   "same_frame": same, "bake": bake, "gather": gathers,
-                   "same_bake": same_bake, **kernels}, f, indent=1)
+                   "traversal_total": trav, "adversarial": adversarial,
+                   "main_path": main_path, "same_frame": same, "bake": bake,
+                   "gather": gathers, "same_bake": same_bake, **kernels}, f,
+                  indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

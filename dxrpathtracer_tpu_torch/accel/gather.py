@@ -31,7 +31,7 @@ DTYPES = (torch.float32, torch.int32)
 KERNEL_LAUNCHES = 0
 
 _kernel = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report from the build in this process
+BUILD_LOG = ""  # nvcc's -Xptxas -v report of the loaded library's build
 
 
 def kernel_library():

@@ -10,9 +10,12 @@ leaf visit runs Moller-Trumbore on its 12 triangles. Any-hit stops at the
 first hit. Results, equal-t ties included, are those of `_traverse`.
 
 Two implementations of that walk:
-  - csrc/traverse.cu: one CUDA thread per ray walks the whole tree in one
-    launch (`_launch_kernel`). It replaces the JAX package's only TPU kernel,
-    accel/pallas_body.py::_kernel, together with the while_loop around it.
+  - csrc/traverse.cu: the whole walk of every ray in one launch
+    (`_launch_kernel`): on W32 tables one warp per ray, lane k testing
+    child k, in persistent warps that take their rays from a counter; on W8
+    tables one thread per ray. It replaces the JAX package's only TPU
+    kernel, accel/pallas_body.py::_kernel, together with the while_loop
+    around it.
   - `traverse_step_plain` / `traverse_plain`: the same step in plain torch,
     lockstep over all lanes, expression for expression `_kernel` for W8 and
     `_traverse`'s XLA body for W32.
@@ -71,7 +74,7 @@ def safe_inv(d):
 # ---------------------------------------------------------------------------
 
 _kernel = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report from the build in this process
+BUILD_LOG = ""  # nvcc's -Xptxas -v report of the loaded library's build
 
 
 def kernel_library():
@@ -86,10 +89,25 @@ def kernel_library():
         lib.dxrpt_traverse.argtypes = [
             p, i32, i32, i32, i64, i32, i32, i32,   # table, walk constants
             p, p, p, p, p, p, i64,                  # rays
+            p,                                      # next-ray counter
             p, p, p, p,                             # outputs
             p]                                      # stream
+        lib.dxrpt_traverse_resident_warps.restype = ctypes.c_int
+        lib.dxrpt_traverse_resident_warps.argtypes = [i32, i32]
         _kernel = lib
     return _kernel
+
+
+def resident_warps(width: int, first_hit: bool) -> int:
+    """Warps of the kernel's (width, first_hit) instantiation that one SM of
+    the current CUDA device holds at once (for W32, whose warps persist,
+    the grid is this times the SM count)."""
+    warps = kernel_library().dxrpt_traverse_resident_warps(width,
+                                                           int(first_hit))
+    if warps <= 0:
+        raise RuntimeError(f"traversal kernel occupancy query failed: CUDA "
+                           f"error {-warps}")
+    return warps
 
 
 def _check(name, x, n, dtype, device, cols=None):
@@ -129,6 +147,8 @@ def _launch_kernel(bvh: FlatBVH, ray_o, ray_d, inv_d, t_min, t_max, active,
     out_v = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return HitRecord(out_t, out_tri, out_u, out_v)
+    # the persistent W32 warps take their next rays from this counter
+    next_ray = torch.zeros(1, dtype=torch.int64, device=dev)
     max_iters = bvh.num_rows * 2 + bvh.stack_depth + 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -138,6 +158,7 @@ def _launch_kernel(bvh: FlatBVH, ray_o, ray_d, inv_d, t_min, t_max, active,
             int(bvh.has_alpha_flags),
             ray_o.data_ptr(), ray_d.data_ptr(), inv_d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
+            next_ray.data_ptr(),
             out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
             out_v.data_ptr(), stream)
         KERNEL_LAUNCHES += 1

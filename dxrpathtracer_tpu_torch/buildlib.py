@@ -2,8 +2,9 @@
 
 Each library lands in `dxrpathtracer_tpu_torch/build/` (listed in .gitignore)
 under a name keyed by a hash of its source and its compile command, so an edit
-to either builds anew and a fresh checkout builds from the sources alone. A
-failed build raises with the compiler's output; nothing falls back.
+to either builds anew and a fresh checkout builds from the sources alone; the
+compiler's report (stderr) is kept beside it as `<library>.log`. A failed
+build raises with the compiler's output; nothing falls back.
 """
 
 import hashlib
@@ -29,11 +30,13 @@ def nvcc() -> str:
 def build_shared_library(src: Path, stem: str, command: list[str],
                          timeout: float = 600.0) -> tuple[Path, str]:
     """Compile `src` with `command + ["-o", out, src]` unless the keyed
-    library exists. Returns (library path, compiler stderr; "" when cached)."""
+    library exists. Returns (library path, the compiler's stderr from the
+    build that made it)."""
     key = hashlib.sha256(src.read_bytes() + "\0".join(command).encode())
     out = BUILD_DIR / f"lib{stem}_{key.hexdigest()[:16]}.so"
+    log = out.with_name(f"{out.name}.log")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run([*command, "-o", str(tmp), str(src)],
@@ -42,5 +45,10 @@ def build_shared_library(src: Path, stem: str, command: list[str],
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"building {src} failed ({' '.join(command)}):\n"
                            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build finds a whole library
+    # the report first, then the library (atomically): a concurrent build
+    # finds a whole library with its report beside it
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(proc.stderr)
+    os.replace(tmp_log, log)
+    os.replace(tmp, out)
     return out, proc.stderr

@@ -7,7 +7,11 @@ Here, on the CPU, the port runs its kernel's plain torch version. It is held
     tests/test_pallas_body.py runs it: all nine outputs exactly equal;
   - end to end against the JAX closest_hit / any_hit (DXRPT_PALLAS_BODY
     unset) on the same W8 and W32 tables: tri ids and visibility equal,
-    t/u/v within rtol 1e-6, atol 1e-7 (and, expected, bit-equal).
+    t/u/v within rtol 1e-6, atol 1e-7 (and, expected, bit-equal);
+  - on the adversarial cases of dxrpathtracer_tpu_torch/tools/
+    traverse_cases.py (equal-t ties, coplanar boxes under axis-aligned rays,
+    hits at t = +-0, inactive rays), against the same JAX functions: tri ids
+    and visibility equal, t/u/v bit-equal.
 The kernel itself is held against the plain version on the card by
 chip_smoke.py. Inputs are numpy arrays made from a seed.
 
@@ -31,6 +35,7 @@ torch = pytest.importorskip("torch")
 from dxrpathtracer_tpu.accel.lbvh import build_bvh  # noqa: E402
 from dxrpathtracer_tpu_torch.accel import traverse as ttrav  # noqa: E402
 from dxrpathtracer_tpu_torch.convert import bvh_from_numpy  # noqa: E402
+from dxrpathtracer_tpu_torch.tools import traverse_cases  # noqa: E402
 
 RTOL, ATOL = 1e-6, 1e-7
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,15 +56,6 @@ def run_reference(script: str, inputs: dict, tmp) -> dict:
     return dict(np.load(dst))
 
 
-def _soup(seed, m=2500):
-    """The triangle soup of tests/test_pallas_body.py."""
-    rng = np.random.default_rng(seed)
-    v0 = (rng.standard_normal((m, 3)) * 4).astype(np.float32)
-    v1 = v0 + rng.standard_normal((m, 3)).astype(np.float32) * 0.8
-    v2 = v0 + rng.standard_normal((m, 3)).astype(np.float32) * 0.8
-    return v0, v1, v2
-
-
 def _rays(seed, n):
     """The rays of tests/test_pallas_body.py, as numpy."""
     rng = np.random.default_rng(seed)
@@ -78,7 +74,7 @@ def _port_bvh(jbvh):
 @pytest.fixture(scope="module")
 def soup_tables():
     """W8 and W32 tables of one soup, built by the JAX package."""
-    tris = _soup(0)
+    tris = traverse_cases.soup(0)
     return {w: build_bvh(*tris, width=w) for w in (8, 32)}
 
 
@@ -225,6 +221,81 @@ def test_any_hit_matches_jax(reference, width):
     vis = _port_walk(port[width], "any").numpy()
     np.testing.assert_array_equal(vis, ref[f"w{width}__any__vis"])
     assert 0 < (vis == 0).sum() < _cases("any", 2048)["active"].sum()
+
+
+_CASE_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from dxrpathtracer_tpu.accel import traverse
+from dxrpathtracer_tpu.accel.lbvh import FlatBVH
+
+inp = dict(np.load(sys.argv[1]))
+out = {}
+for key in sorted(k[:-7] for k in inp if k.endswith("__table")):
+    c = inp[key + "__const"]
+    bvh = FlatBVH(table=jnp.asarray(inp[key + "__table"]), num_rows=int(c[0]),
+                  max_depth=int(c[1]), root_code=int(c[2]), width=int(c[3]))
+    case = key.split("__")[0]
+    args = [jnp.asarray(inp[case + "__" + f])
+            for f in ("o", "d", "tmin", "tmax", "active")]
+    res = jax.jit(traverse.closest_hit)(bvh, *args)
+    for f in ("t", "tri_id", "u", "v"):
+        out[key + "__closest__" + f] = np.asarray(getattr(res, f))
+    out[key + "__any__vis"] = np.asarray(jax.jit(traverse.any_hit)(bvh, *args))
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def adversarial(tmp_path_factory):
+    """The adversarial cases: port tables and the JAX results on them."""
+    cases = traverse_cases.cases()
+    inputs, port = {}, {}
+    for name, (tris, rays) in cases.items():
+        for f, a in rays.items():
+            inputs[f"{name}__{f}"] = a
+        for w in (8, 32):
+            bvh = _port_bvh(build_bvh(*tris, width=w))
+            port[name, w] = bvh
+            inputs[f"{name}__w{w}__table"] = bvh.table.numpy()
+            inputs[f"{name}__w{w}__const"] = np.asarray(
+                [bvh.num_rows, bvh.max_depth, bvh.root_code, w])
+    ref = run_reference(_CASE_SCRIPT, inputs,
+                        tmp_path_factory.mktemp("traverse_cases"))
+    return cases, port, ref
+
+
+@pytest.mark.parametrize("case", ["ties", "soup"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+@pytest.mark.parametrize("width", [8, 32])
+def test_adversarial_cases_match_jax(adversarial, case, kind, width):
+    """Every tie rule of the walk: tri ids / visibility equal, t/u/v bit
+    for bit."""
+    cases, port, ref = adversarial
+    rays = {f: torch.from_numpy(a) for f, a in cases[case][1].items()}
+    args = (port[case, width], rays["o"], rays["d"], rays["tmin"],
+            rays["tmax"], rays["active"])
+    key = f"{case}__w{width}__{kind}"
+    if kind == "any":
+        vis = ttrav.any_hit(*args).numpy()
+        np.testing.assert_array_equal(vis, ref[key + "__vis"])
+        assert 0 < (vis == 0).sum() < rays["active"].sum()
+        return
+    got = ttrav.closest_hit(*args)
+    np.testing.assert_array_equal(got.tri_id.numpy(), ref[key + "__tri_id"])
+    for f in ("t", "u", "v"):
+        np.testing.assert_array_equal(
+            getattr(got, f).numpy().view(np.int32),
+            ref[key + "__" + f].view(np.int32), err_msg=f)
+    hit = got.tri_id.numpy() >= 0
+    assert hit.sum() > len(hit) // 4
+    if case == "ties":  # hits at t = -0 and at t = +0 both occur
+        t = got.t.numpy()[hit]
+        assert ((t == 0) & np.signbit(t)).any() and ((t == 0)
+                                                     & ~np.signbit(t)).any()
 
 
 def test_routing_is_by_device(soup_tables, monkeypatch):
