@@ -16,7 +16,9 @@ Every node, internal or leaf, is one 128-float (512 B) record:
       bits), rounded outward so a bf16 box contains the f32 box;
       [96:128) bitcast(child codes).
   leaf (both widths, L = 12 triangles): [0:L) v0x [L:2L) v0y [2L:3L) v0z
-      [3L:6L) e1 xyz [6L:9L) e2 xyz [9L:10L) bitcast(tri_id), -1 when empty.
+      [3L:6L) e1 xyz [6L:9L) e2 xyz [9L:10L) bitcast(tri_id), -1 when empty;
+      a table built with tri_alpha ORs ALPHA_TID_BIT into the ids of
+      alpha-tested triangles.
   child code: >= 0 -> internal row; < 0 -> ~leaf row.
 """
 
@@ -84,9 +86,41 @@ def sah_library():
     return _lib
 
 
+def leaf_rows(table: np.ndarray, root_code: int, width: int) -> np.ndarray:
+    """The leaf row ids of a packed table, level by level from the root.
+    Child codes sit at [48:56) (W8) or [96:128) (W32); empty slots store
+    code 0, which no child can have (row 0 is the root)."""
+    if root_code < 0:
+        return np.asarray([~root_code], np.int64)
+    lo = 48 if width == 8 else 3 * width
+    frontier, leaves = np.asarray([root_code], np.int64), []
+    while frontier.size:
+        codes = table[frontier, lo:lo + width].view(np.int32).reshape(-1)
+        leaves.append(~codes[codes < 0].astype(np.int64))
+        frontier = codes[codes > 0].astype(np.int64)
+    return np.concatenate(leaves)
+
+
+def flag_alpha_tris(table: np.ndarray, root_code: int, width: int,
+                    tri_alpha: np.ndarray) -> np.ndarray:
+    """ORs ALPHA_TID_BIT into the leaf tri ids of the triangles whose
+    material is alpha-tested (`flag_alpha_tris` of the JAX package), in
+    place; empty slots (-1) stay."""
+    rows = leaf_rows(table, root_code, width)
+    ids = table[rows, 9 * LEAF_SIZE:10 * LEAF_SIZE].view(np.int32).copy()
+    valid = ids >= 0
+    flag = np.zeros_like(valid)
+    flag[valid] = np.asarray(tri_alpha, bool)[ids[valid]]
+    ids[flag] |= ALPHA_TID_BIT
+    table[rows, 9 * LEAF_SIZE:10 * LEAF_SIZE] = ids.view(np.float32)
+    return table
+
+
 def build_bvh(v0, v1, v2, width: int = WIDTH,
-              leaf_size: int = LEAF_SIZE) -> FlatBVH:
-    """Binned-SAH BVH over (T, 3) triangle vertices -> FlatBVH on the CPU."""
+              leaf_size: int = LEAF_SIZE, tri_alpha=None) -> FlatBVH:
+    """Binned-SAH BVH over (T, 3) triangle vertices -> FlatBVH on the CPU.
+    tri_alpha: (T,) bool, whose set triangles get ALPHA_TID_BIT in their
+    leaf ids (the table then has_alpha_flags), or None."""
     if width not in (8, 32):
         raise ValueError(f"width must be 8 or 32, got {width}")
     if not 0 < leaf_size <= LEAF_SIZE:
@@ -110,14 +144,26 @@ def build_bvh(v0, v1, v2, width: int = WIDTH,
                                      rows)
     if rows < 1 or rc != 0:
         raise RuntimeError(f"native SAH build failed (rows={rows}, rc={rc})")
+    has_flags = tri_alpha is not None and bool(np.asarray(tri_alpha).any())
+    if has_flags:
+        flag_alpha_tris(table, int(root.value), width, tri_alpha)
     return FlatBVH(table=torch.from_numpy(table), num_rows=int(rows),
                    max_depth=int(depth.value) + 2,
-                   root_code=int(root.value), width=width)
+                   root_code=int(root.value), width=width,
+                   has_alpha_flags=has_flags)
 
 
-def build_bvh_for_scene(scene, width: int = WIDTH) -> FlatBVH:
-    """FlatBVH (on the CPU) over a Scene's triangles."""
+def build_bvh_for_scene(scene, width: int = WIDTH,
+                        flag_alpha: bool = False) -> FlatBVH:
+    """FlatBVH (on the CPU) over a Scene's triangles. flag_alpha=True marks
+    the triangles of opacity-mapped materials with ALPHA_TID_BIT in the leaf
+    ids (no-op on opaque scenes), which lets the W8 walk skip the alpha
+    test's texture lookup for every other triangle."""
     pos = scene.positions.cpu().numpy()
     tri = scene.tri_idx.cpu().numpy()
+    tri_alpha = None
+    if flag_alpha and scene.any_opacity:
+        has_op = scene.has_opacity.cpu().numpy()
+        tri_alpha = has_op[scene.tri_material.cpu().numpy()]
     return build_bvh(pos[tri[:, 0]], pos[tri[:, 1]], pos[tri[:, 2]],
-                     width=width)
+                     width=width, tri_alpha=tri_alpha)

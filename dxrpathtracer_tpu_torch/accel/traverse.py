@@ -9,6 +9,12 @@ mask, so the stack holds one entry per tree level (FlatBVH.stack_depth). A
 leaf visit runs Moller-Trumbore on its 12 triangles. Any-hit stops at the
 first hit. Results, equal-t ties included, are those of `_traverse`.
 
+Alpha testing: given an `AlphaTest` (the scene's shading rows and texel
+pool), a triangle that passes the geometric test is a candidate only if the
+opacity test accepts it, inside the walk, as the JAX package's
+`closest_hit/any_hit(accept_fn=...)` compute (`_intersect_leaf`'s
+`ok & accept_fn(tid, u, v)`); any-hit stops at the first accepted hit.
+
 Two implementations of that walk:
   - csrc/traverse.cu: the whole walk of every ray in one launch
     (`_launch_kernel`): on W32 tables one warp per ray, lane k testing
@@ -21,7 +27,9 @@ Two implementations of that walk:
     `_traverse`'s XLA body for W32.
 
 `closest_hit` and `any_hit` launch the kernel for CUDA tensors and run the
-plain version for CPU tensors; they route on the device alone.
+plain version for CPU tensors; they route on the device alone. The kernel
+has eight instantiations: W8 or W32, closest or any hit, opaque or
+alpha-tested.
 """
 
 import ctypes
@@ -31,6 +39,9 @@ from pathlib import Path
 import torch
 
 from ..buildlib import build_shared_library, nvcc
+from ..scene.textures import bilinear_from_meta
+from ..scene.types import (PACKED_SLOTS, TRI_SHADE_META, TRI_SHADE_VTX,
+                           TRI_SHADE_WIDTH)
 from .bvh import ALPHA_TID_BIT, LEAF_SIZE, RECORD, FlatBVH
 
 KERNEL_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "traverse.cu"
@@ -43,11 +54,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_STACK = 64  # kMaxStack in csrc/traverse.cu
 
 # Launches of the traversal kernel since the process started (or since a
-# caller last reset it). Only `_launch_kernel` adds to it.
-KERNEL_LAUNCHES = 0
+# caller last cleared it), by instantiation (width, first_hit, alpha); their
+# sum is all launches. Only `_launch_kernel` adds to it.
+KERNEL_LAUNCHES: dict[tuple[int, bool, bool], int] = {}
 
 _BIG = 3e38
 _EPS = 1e-12
+ALPHA_CUTOFF = 0.35  # opacity < 0.35 ignores the hit (RayTrace.hlsl:485-507)
+_UV = 6              # the UV's slot in a shading row's vertex block
+_OPACITY = 3 * PACKED_SLOTS.index("opacity")  # its (base, w, h) in the meta
+_HAS_OPACITY = 18    # has_opacity in the packed material meta
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +76,36 @@ class HitRecord:
     @property
     def hit(self):
         return self.tri_id >= 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AlphaTest:
+    """The any-hit opacity test of alpha-tested materials (RayTrace.hlsl:
+    485-507): what the kernel's alpha instantiations read, and, called as
+    accept_fn(tid, u, v), its plain version: JAX `_make_alpha_test`'s
+    accept. A triangle is accepted when its material has no opacity map or
+    the bilinear wrap tap of the map's channel 0 at the hit's UV is >= 0.35.
+    The UVs and the material meta come from the triangle's shading row
+    (the same values as the JAX package's uvs and packed_meta gathers)."""
+
+    tri_shade: torch.Tensor  # (T, 64) f32 packed shading rows
+    texels: torch.Tensor     # (texels, 4) f32 atlas pool
+
+    def __call__(self, tid, u, v):
+        flat = torch.clamp_min(tid, 0).reshape(-1).long()
+        rec = self.tri_shade.index_select(0, flat).reshape(
+            *tid.shape, TRI_SHADE_WIDTH)
+        meta = rec.view(torch.int32)[..., TRI_SHADE_META:TRI_SHADE_META + 20]
+        w = (1.0 - u - v)[..., None]
+        K = TRI_SHADE_VTX
+        uv = (rec[..., _UV:_UV + 2] * w + rec[..., K + _UV:K + _UV + 2]
+              * u[..., None] + rec[..., 2 * K + _UV:2 * K + _UV + 2]
+              * v[..., None])
+        opacity = bilinear_from_meta(
+            self.texels, meta[..., _OPACITY], meta[..., _OPACITY + 1],
+            meta[..., _OPACITY + 2], uv)[..., 0]
+        return torch.where(meta[..., _HAS_OPACITY] != 0,
+                           opacity >= ALPHA_CUTOFF, True)
 
 
 def safe_inv(d):
@@ -88,22 +134,23 @@ def kernel_library():
         lib.dxrpt_traverse.restype = ctypes.c_int
         lib.dxrpt_traverse.argtypes = [
             p, i32, i32, i32, i64, i32, i32, i32,   # table, walk constants
+            p, p,                                   # alpha: rows, texels
             p, p, p, p, p, p, i64,                  # rays
             p,                                      # next-ray counter
             p, p, p, p,                             # outputs
             p]                                      # stream
         lib.dxrpt_traverse_resident_warps.restype = ctypes.c_int
-        lib.dxrpt_traverse_resident_warps.argtypes = [i32, i32]
+        lib.dxrpt_traverse_resident_warps.argtypes = [i32, i32, i32]
         _kernel = lib
     return _kernel
 
 
-def resident_warps(width: int, first_hit: bool) -> int:
-    """Warps of the kernel's (width, first_hit) instantiation that one SM of
-    the current CUDA device holds at once (for W32, whose warps persist,
-    the grid is this times the SM count)."""
-    warps = kernel_library().dxrpt_traverse_resident_warps(width,
-                                                           int(first_hit))
+def resident_warps(width: int, first_hit: bool, alpha: bool = False) -> int:
+    """Warps of the kernel's (width, first_hit, alpha) instantiation that one
+    SM of the current CUDA device holds at once (for W32, whose warps
+    persist, the grid is this times the SM count)."""
+    warps = kernel_library().dxrpt_traverse_resident_warps(
+        width, int(first_hit), int(alpha))
     if warps <= 0:
         raise RuntimeError(f"traversal kernel occupancy query failed: CUDA "
                            f"error {-warps}")
@@ -120,10 +167,10 @@ def _check(name, x, n, dtype, device, cols=None):
 
 
 def _launch_kernel(bvh: FlatBVH, ray_o, ray_d, inv_d, t_min, t_max, active,
-                   first_hit: bool) -> HitRecord:
+                   first_hit: bool, alpha: AlphaTest | None = None
+                   ) -> HitRecord:
     """One launch of the kernel over all rays, on the current stream; does
-    not synchronise."""
-    global KERNEL_LAUNCHES
+    not synchronise. With `alpha`, the alpha-tested instantiation."""
     dev = ray_o.device
     n = ray_o.shape[0]
     for name, x, dtype, cols in (
@@ -135,6 +182,13 @@ def _launch_kernel(bvh: FlatBVH, ray_o, ray_d, inv_d, t_min, t_max, active,
             ("active", active, torch.bool, None)):
         _check(name, x, n, dtype, dev, cols)
     _check("bvh.table", bvh.table, bvh.num_rows, torch.float32, dev, RECORD)
+    alpha_ptrs = (None, None)
+    if alpha is not None:
+        _check("alpha.tri_shade", alpha.tri_shade, alpha.tri_shade.shape[0],
+               torch.float32, dev, TRI_SHADE_WIDTH)
+        _check("alpha.texels", alpha.texels, alpha.texels.shape[0],
+               torch.float32, dev, 4)
+        alpha_ptrs = (alpha.tri_shade.data_ptr(), alpha.texels.data_ptr())
     if bvh.width not in (8, 32):
         raise ValueError(f"unsupported BVH width {bvh.width}")
     if bvh.stack_depth > MAX_STACK:
@@ -155,13 +209,14 @@ def _launch_kernel(bvh: FlatBVH, ray_o, ray_d, inv_d, t_min, t_max, active,
         rc = lib.dxrpt_traverse(
             bvh.table.data_ptr(), bvh.num_rows, bvh.root_code,
             bvh.stack_depth, max_iters, bvh.width, int(first_hit),
-            int(bvh.has_alpha_flags),
+            int(bvh.has_alpha_flags), *alpha_ptrs,
             ray_o.data_ptr(), ray_d.data_ptr(), inv_d.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
             next_ray.data_ptr(),
             out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
             out_v.data_ptr(), stream)
-        KERNEL_LAUNCHES += 1
+        key = (bvh.width, bool(first_hit), alpha is not None)
+        KERNEL_LAUNCHES[key] = KERNEL_LAUNCHES.get(key, 0) + 1
     if rc != 0:
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
     return HitRecord(out_t, out_tri, out_u, out_v)
@@ -270,9 +325,12 @@ def _argmin_block(keys, codes, width: int, slot_offset: int, pow2):
     return near_key, near_code, pow2[shift.long()]
 
 
-def traverse_step_plain(bvh: FlatBVH, s: LaneState,
-                        first_hit: bool = False) -> LaneState:
-    """One lockstep step of every lane (`_kernel` / `_traverse`'s body)."""
+def traverse_step_plain(bvh: FlatBVH, s: LaneState, first_hit: bool = False,
+                        accept_fn=None) -> LaneState:
+    """One lockstep step of every lane (`_kernel` / `_traverse`'s body).
+    accept_fn(tid, u, v) -> bool, on the (k,) ids and barycentrics of the
+    triangles that pass the geometric test: a triangle is a candidate only
+    where it accepts (the alpha test), or None."""
     dev = s.cur.device
     i32 = torch.int32
     done = bvh.num_rows
@@ -351,6 +409,10 @@ def traverse_step_plain(bvh: FlatBVH, s: LaneState,
     ok = (is_leaf[:, None] & (tid >= 0) & det_ok
           & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t >= tmin) & (t < best_t))
+    if accept_fn is not None:
+        # ok & accept_fn(tid, u, v), the test taken at the candidates only
+        cand = ok.nonzero(as_tuple=True)
+        ok = ok.index_put(cand, accept_fn(tid[cand], u[cand], v[cand]))
     key = torch.where(ok, t, _BIG)
     ck = key.amin(dim=1)
     slot = torch.arange(L, dtype=i32, device=dev)[None, :]
@@ -399,14 +461,14 @@ def traverse_step_plain(bvh: FlatBVH, s: LaneState,
 
 
 def traverse_plain(bvh: FlatBVH, ray_o, ray_d, inv_d, t_min, t_max, active,
-                   first_hit: bool = False) -> HitRecord:
+                   first_hit: bool = False, accept_fn=None) -> HitRecord:
     """Loops `traverse_step_plain` until every lane is done (or the safety
     bound of `_traverse`, num_rows*2 + stack_depth + 4 steps, is reached)."""
     s = init_lanes(bvh, ray_o, ray_d, inv_d, t_min, t_max, active)
     max_iters = bvh.num_rows * 2 + bvh.stack_depth + 4
     it = 0
     while it < max_iters and bool((s.cur != bvh.num_rows).any()):
-        s = traverse_step_plain(bvh, s, first_hit)
+        s = traverse_step_plain(bvh, s, first_hit, accept_fn)
         it += 1
     return HitRecord(t=s.bt, tri_id=s.btri, u=s.bu, v=s.bv)
 
@@ -416,7 +478,7 @@ def traverse_plain(bvh: FlatBVH, ray_o, ray_d, inv_d, t_min, t_max, active,
 # ---------------------------------------------------------------------------
 
 def _traverse(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active,
-              first_hit: bool) -> HitRecord:
+              first_hit: bool, alpha: AlphaTest | None) -> HitRecord:
     n = ray_o.shape[0]
     dev = ray_o.device
     ray_o = ray_o.to(torch.float32).contiguous()
@@ -431,25 +493,27 @@ def _traverse(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active,
     inv_d = safe_inv(ray_d).contiguous()
     if dev.type == "cuda":
         return _launch_kernel(bvh, ray_o, ray_d, inv_d, t_min, t_max, active,
-                              first_hit)
+                              first_hit, alpha)
     if dev.type == "cpu":
         return traverse_plain(bvh, ray_o, ray_d, inv_d, t_min, t_max, active,
-                              first_hit)
+                              first_hit, alpha)
     raise ValueError(f"no traversal for device {dev}")
 
 
-def closest_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max,
-                active=None) -> HitRecord:
+def closest_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None,
+                alpha: AlphaTest | None = None) -> HitRecord:
     """Closest-hit traversal of a flat ray batch.
 
     ray_o/ray_d: (N, 3); t_min/t_max: scalar or (N,); active: (N,) bool or
-    None. Misses keep t == t_max and tri_id == -1.
+    None; alpha: the alpha test, or None (every triangle opaque:
+    FORCE_OPAQUE). Misses keep t == t_max and tri_id == -1.
     """
-    return _traverse(bvh, ray_o, ray_d, t_min, t_max, active, first_hit=False)
+    return _traverse(bvh, ray_o, ray_d, t_min, t_max, active, False, alpha)
 
 
-def any_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None):
+def any_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None,
+            alpha: AlphaTest | None = None):
     """Any-hit (shadow) traversal; returns visibility (N,) f32 in {0, 1},
     1 when unoccluded (ShadowPayload, RayTrace.hlsl:73-76,533-541)."""
-    rec = _traverse(bvh, ray_o, ray_d, t_min, t_max, active, first_hit=True)
+    rec = _traverse(bvh, ray_o, ray_d, t_min, t_max, active, True, alpha)
     return torch.where(rec.hit, 0.0, 1.0)

@@ -1,10 +1,12 @@
-"""Command-line shell: `python -m dxrpathtracer_tpu_torch bake ...`.
+"""Command-line shell: `python -m dxrpathtracer_tpu_torch render|bake ...`.
 
-The port of dxrpathtracer_tpu/app/cli.py's `bake` command: every AppSettings
-field is a flag, as in the JAX package, plus the bake's own. It runs on the
-card (`--device cuda`, the default) and raises when there is none; pass
-`--device cpu` for the plain versions. The `render`, `uvviz`, `animate` and
-`interactive` commands are later slices of the port.
+The port of dxrpathtracer_tpu/app/cli.py's `render` and `bake` commands:
+every AppSettings field is a flag, as in the JAX package, plus each
+command's own. They run on the card (`--device cuda`, the default) and raise
+when there is none; pass `--device cpu` for the plain versions. Raster mode
+(`render --raster`, `--shadow-mode`, `--lightmap`, EnableRayTracing=false)
+is ROADMAP.md Queue 1 item 11 and `--profile-trace` item 13; they raise. The
+`uvviz`, `animate` and `interactive` commands are later slices of the port.
 """
 
 import argparse
@@ -59,6 +61,50 @@ def _progress(i, total, t0, width, height, max_path_length):
     sys.stderr.flush()
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_render(args):
+    from ..render.film import write_image
+    from .session import RenderSession
+
+    settings = _settings_from_args(args)
+    if (args.raster or args.shadow_mode is not None or args.lightmap
+            or not settings.enable_ray_tracing):
+        raise NotImplementedError(
+            "raster mode (--raster, --shadow-mode, --lightmap, "
+            "EnableRayTracing=false) is not ported yet (ROADMAP.md Queue 1 "
+            "item 11)")
+    if args.profile_trace:
+        raise NotImplementedError(
+            "--profile-trace is not ported yet (ROADMAP.md Queue 1 item 13)")
+    t0 = time.time()
+    sess = RenderSession(settings=settings, width=args.width,
+                         height=args.height, device=args.device)
+    print(f"# scene={sess.preset.name} tris={sess.scene.num_triangles} "
+          f"bvh_rows={sess.bvh.num_rows} init={time.time() - t0:.1f}s "
+          f"device={sess.device}", file=sys.stderr)
+    show_progress = args.progress and settings.show_progress_bar
+    total = settings.total_samples
+    t0 = time.time()
+    while sess.sample_idx < total:
+        sess.render_frame(force=True)
+        if show_progress:
+            _sync(sess.device)
+            _progress(sess.sample_idx - 1, total, t0, args.width, args.height,
+                      settings.max_path_length)
+    _sync(sess.device)
+    if show_progress:
+        sys.stderr.write("\n")
+    write_image(args.output, sess.display_image().cpu().numpy())
+    if args.save_hdr:
+        # the raw HDR accumulation: .exr or .npy by extension
+        write_image(args.save_hdr, sess.accum.cpu().numpy())
+    print(f"# wrote {args.output}", file=sys.stderr)
+
+
 def cmd_bake(args):
     from ..bake.baker import Baker
     from ..core.constants import FP16Scale
@@ -80,8 +126,7 @@ def cmd_bake(args):
     for i in range(baker.sample_index, args.samples):
         baker.bake_step()
         if show_progress:
-            if sess.device.type == "cuda":
-                torch.cuda.synchronize(sess.device)
+            _sync(sess.device)
             _progress(i, args.samples, t0, args.resolution, args.resolution,
                       settings.max_path_length)
         if ckpt and (i + 1) % max(args.checkpoint_every, 1) == 0:
@@ -110,6 +155,30 @@ def cmd_bake(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="dxrpathtracer_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p_render = sub.add_parser("render",
+                              help="progressive path trace to an image")
+    p_render.add_argument("--width", type=int, default=1920)
+    p_render.add_argument("--height", type=int, default=1080)
+    p_render.add_argument("--output", type=str, default="render.png")
+    p_render.add_argument("--save-hdr", type=str, default=None,
+                          help="also save the raw HDR accumulation (.exr or "
+                               ".npy)")
+    p_render.add_argument("--raster", action="store_true",
+                          help="raster mode (not ported: raises)")
+    p_render.add_argument("--shadow-mode", type=str, default=None,
+                          choices=["rays", "pcf", "evsm", "msm"],
+                          help="raster sun shadows (not ported: raises)")
+    p_render.add_argument("--lightmap", type=str, default=None,
+                          help="raster lightmap render (not ported: raises)")
+    p_render.add_argument("--profile-trace", type=str, default=None,
+                          help="device trace of the render (not ported: "
+                               "raises)")
+    p_render.add_argument("--progress", action="store_true", default=True)
+    p_render.add_argument("--device", type=str, default="cuda",
+                          help="torch device; 'cpu' runs the plain versions")
+    _add_settings_flags(p_render)
+    p_render.set_defaults(fn=cmd_render)
 
     p_bake = sub.add_parser("bake", help="bake a GI lightmap")
     p_bake.add_argument("--resolution", type=int, default=1024)

@@ -16,6 +16,7 @@ from ..accel.bvh import build_bvh_for_scene
 from ..app.settings import AppSettings, Scenes
 from ..render.camera import FirstPersonCamera
 from ..render.integrator import FrameConstants, render_sample
+from ..render.postfx import post_process
 from ..scene.registry import load_scene
 from ..sky.skycache import SkyCache
 
@@ -32,28 +33,40 @@ class RenderSession:
     renders in one pass, with no row slabs.
 
     It runs on the card unless the caller passes device="cpu"; with no card
-    it raises rather than carry on on the CPU.
+    it raises rather than carry on on the CPU. `scene` (CPU tensors, e.g.
+    registry.sponza_alpha_standin's) replaces the settings' scene; its
+    `preset`, when given, sets the camera and sun and forces white-furnace
+    mode on the WhiteFurnace scene, as a scene switch does (without one,
+    the camera keeps its default pose and the settings stay as given).
     """
 
     def __init__(self, settings: AppSettings | None = None,
-                 width: int = 1920, height: int = 1080, device="cuda"):
+                 width: int = 1920, height: int = 1080, device="cuda",
+                 scene=None, preset=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RenderSession: no CUDA device (pass "
                                "device='cpu' to run the plain versions)")
         self.width = width
         self.height = height
-        settings = settings or AppSettings()
-        scene, preset = load_scene(settings.current_scene)
-        # Scene switch forces white-furnace mode (DXRPathTracer.cpp:934-935)
-        self.settings = settings.replace(
-            enable_white_furnace_mode=preset.scene_enum == Scenes.WhiteFurnace,
-            sun_direction=tuple(preset.sun_direction),
-            current_scene=preset.scene_enum)
+        self.settings = settings or AppSettings()
+        if scene is None:
+            scene, preset = load_scene(self.settings.current_scene)
+        if preset is not None:
+            # Scene switch forces white-furnace mode (DXRPathTracer.cpp:
+            # 934-935)
+            self.settings = self.settings.replace(
+                enable_white_furnace_mode=(
+                    preset.scene_enum == Scenes.WhiteFurnace),
+                sun_direction=tuple(preset.sun_direction),
+                current_scene=preset.scene_enum)
         self.preset = preset
 
-        # W8 for depth-1 rays, W32 (bf16 boxes) for every deeper ray.
-        self.bvh = build_bvh_for_scene(scene, width=8).to(self.device)
+        # W8 for depth-1 rays, with alpha-tested triangles flagged in its
+        # leaf ids (no-op on opaque scenes); W32 (bf16 boxes) for every
+        # deeper ray.
+        self.bvh = build_bvh_for_scene(scene, width=8,
+                                       flag_alpha=True).to(self.device)
         self.bvh_ray = build_bvh_for_scene(scene, width=32).to(self.device)
         # The scene on the host (CPU tensors; np.asarray views them) that
         # the lightmap atlas builders read, as the JAX package's scene_host.
@@ -61,9 +74,10 @@ class RenderSession:
         self.scene = scene.to(self.device)
 
         self.camera = FirstPersonCamera(aspect=width / height)
-        self.camera.set_position(preset.camera_position)
-        self.camera.set_x_rotation(preset.camera_rotation[0])
-        self.camera.set_y_rotation(preset.camera_rotation[1])
+        if preset is not None:
+            self.camera.set_position(preset.camera_position)
+            self.camera.set_x_rotation(preset.camera_rotation[0])
+            self.camera.set_y_rotation(preset.camera_rotation[1])
 
         self.sky = SkyCache()
         self.sky_cube = None
@@ -143,6 +157,14 @@ class RenderSession:
             return False
         self._step()
         return True
+
+    def display_image(self) -> torch.Tensor:
+        """The tone-mapped display image (PostProcessor::Render): bloom and
+        the filmic curve over the accumulation, (height, width, 3) sRGB in
+        [0, 1] on the session's device."""
+        s = self.settings
+        return post_process(self.accum, s.exposure, s.bloom_exposure,
+                            s.bloom_magnitude, s.bloom_blur_sigma)
 
     def render_to_completion(self, max_samples: int | None = None):
         """Render samples until `max_samples` (default SqrtNumSamples^2) are

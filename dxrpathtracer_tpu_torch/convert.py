@@ -14,15 +14,42 @@ import torch
 
 from .accel.bvh import FlatBVH
 from .render.integrator import FrameConstants
-from .scene.types import SCENE_ARRAYS, Scene
+from .scene.types import LIGHT_ARRAYS, SCENE_ARRAYS, Scene, SpotLights
 
 
 def scene_from_numpy(arrays: dict[str, np.ndarray],
-                     num_lights: int = 0) -> Scene:
+                     lights: SpotLights | None = None) -> Scene:
     """Scene (CPU tensors, copies) from a dict holding every name in
-    scene.types.SCENE_ARRAYS."""
+    scene.types.SCENE_ARRAYS; no spot lights unless given."""
     return Scene.from_numpy({k: np.array(arrays[k]) for k in SCENE_ARRAYS},
-                            num_lights=num_lights)
+                            lights=lights)
+
+
+def reference_scene_arrays(scene) -> dict[str, np.ndarray]:
+    """The JAX package's Scene with host leaves (its load_scene and registry
+    scenes) as the port's named arrays: SCENE_ARRAYS, then "light_" +
+    LIGHT_ARRAYS and "num_lights". Reads attributes only; imports no JAX."""
+    out = dict(
+        positions=scene.positions, normals=scene.normals, uvs=scene.uvs,
+        tangents=scene.tangents, bitangents=scene.bitangents,
+        tri_idx=scene.tri_idx, tri_material=scene.tri_material,
+        tri_shade=scene.tri_shade, texels=scene.textures.texels,
+        texture_meta=scene.textures.meta,
+        packed_meta=scene.materials.packed_meta,
+        has_opacity=scene.materials.has_opacity)
+    for k in LIGHT_ARRAYS:
+        out["light_" + k] = getattr(scene.lights, k)
+    out["num_lights"] = scene.lights.num_lights
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def scene_from_reference_arrays(arrays: dict[str, np.ndarray]) -> Scene:
+    """The port's Scene from `reference_scene_arrays`' dict (or the same
+    names read back from an .npz)."""
+    lights = SpotLights.from_numpy(
+        {k: arrays["light_" + k] for k in LIGHT_ARRAYS},
+        int(arrays["num_lights"]))
+    return scene_from_numpy(arrays, lights=lights)
 
 
 def bvh_from_numpy(table, num_rows: int, max_depth: int, root_code: int,

@@ -58,6 +58,11 @@ def saturate(x):
     return torch.clamp(x, 0.0, 1.0)
 
 
+def smoothstep(edge0, edge1, x):
+    t = torch.clamp((x - edge0) / (edge1 - edge0), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
 def reflect(i, n):
     """HLSL reflect: i - 2*dot(i,n)*n (i points toward the surface)."""
     return i - 2.0 * dot3(i, n, keepdims=True) * n

@@ -40,6 +40,23 @@
 //    8 lanes per ray (the W32 scheme, four rays per warp) and against 4 B
 //    loads, it was the fastest of the three (PERF.md, the W8 A/B).
 //
+// Alpha testing (kAlpha instantiations). A triangle that passes the
+// geometric test is then alpha-tested, as DXR's any-hit shader does at each
+// candidate (RayTrace.hlsl:485-507) and as the JAX package's in-loop
+// accept_fn does (accel/traverse.py::_intersect_leaf): its 256 B shading row
+// (scene/types.py pack_tri_shade) gives the material's has_opacity, the
+// opacity texture's (base, w, h) and the three vertex UVs in one read; an
+// opacity-mapped triangle takes one bilinear wrap tap of channel 0 at the
+// hit's UV and is accepted iff the opacity is >= 0.35. A rejected triangle
+// is no candidate; any-hit ends at the first accepted hit. On W8 tables
+// built with alpha flags the leaf id's ALPHA_TID_BIT skips the row read for
+// opaque triangles; W32 tables carry no flags, so every candidate reads its
+// row. The JAX package's default route instead re-traverses past rejected
+// hits from outside the loop (integrator.py::_punch_through_closest, for the
+// TPU's lockstep loop, where an in-loop tap is paid on every leaf slot of
+// every lane); a walk per thread or per warp pays the tap only at
+// candidates. The opaque instantiations compile without any of this.
+//
 // Exactness. Build with --fmad=false and without fast-math: every product
 // is rounded on its own and every division is IEEE, as in the plain torch
 // version. min/max propagate NaN as torch.minimum/jnp.minimum do (PTX
@@ -49,6 +66,7 @@
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -61,6 +79,21 @@ constexpr unsigned kWarp = 0xFFFFFFFFu;
 constexpr float kBig = 3e38f;     // "no hit" key
 constexpr float kEps = 1e-12f;    // determinant threshold
 constexpr int32_t kAlphaTidBit = 1 << 30;
+// the packed shading row (scene/types.py): 14 f32 per vertex block with the
+// UV at +6, the packed material meta (int32) from slot 44: the opacity
+// texture's (base, w, h) at meta[12..14], has_opacity at meta[18]
+constexpr int kShadeRow = 64;
+constexpr int kShadeVtx = 14;
+constexpr int kShadeUv = 6;
+constexpr int kShadeMeta = 44;
+constexpr int kMetaOpacity = 12;  // 3 * PACKED_SLOTS.index("opacity")
+constexpr int kMetaHasOpacity = 18;
+constexpr float kAlphaCutoff = 0.35f;
+
+struct AlphaScene {
+    const float* __restrict__ tri_shade;  // (T, 64) f32 shading rows
+    const float* __restrict__ texels;     // (texels, 4) f32 atlas pool
+};
 
 __device__ __forceinline__ float nan_min(float a, float b) {
     float r;
@@ -134,6 +167,55 @@ __device__ __forceinline__ bool triangle(const float f[10], const Ray& r,
            && t >= r.tmin && t < best_t;
 }
 
+// floor-mod (the sign of the divisor, as torch.remainder and jnp.mod)
+__device__ __forceinline__ int32_t floor_mod(int32_t a, int32_t b) {
+    const int32_t r = a % b;
+    return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// The alpha test of triangle id at barycentrics (u, v): true when the
+// triangle's material has no opacity map or its opacity there is >= 0.35.
+// The plain version is render/integrator.py::_make_alpha_test; the
+// expressions and their order are bilinear_from_meta's.
+__device__ __forceinline__ bool alpha_accept(const AlphaScene& a,
+                                             int32_t id, float u, float v) {
+    const float* __restrict__ row =
+        a.tri_shade + static_cast<int64_t>(id) * kShadeRow;
+    const int32_t* __restrict__ meta =
+        reinterpret_cast<const int32_t*>(row + kShadeMeta);
+    if (__ldg(meta + kMetaHasOpacity) == 0) return true;
+    const int32_t base = __ldg(meta + kMetaOpacity);
+    const int32_t w = __ldg(meta + kMetaOpacity + 1);
+    const int32_t h = __ldg(meta + kMetaOpacity + 2);
+    const float bw = 1.0f - u - v;
+    float uv[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+        uv[c] = __ldg(row + kShadeUv + c) * bw
+                + __ldg(row + kShadeVtx + kShadeUv + c) * u
+                + __ldg(row + 2 * kShadeVtx + kShadeUv + c) * v;
+    const float x = uv[0] * static_cast<float>(w) - 0.5f;
+    const float y = uv[1] * static_cast<float>(h) - 0.5f;
+    const float x0 = floorf(x);
+    const float y0 = floorf(y);
+    const float fx = x - x0;
+    const float fy = y - y0;
+    const int32_t x0i = floor_mod(__float2int_rz(x0), w);
+    const int32_t x1i = floor_mod(x0i + 1, w);
+    const int32_t y0i = floor_mod(__float2int_rz(y0), h);
+    const int32_t y1i = floor_mod(y0i + 1, h);
+    auto texel = [&](int32_t yi, int32_t xi) {
+        return __ldg(a.texels + static_cast<int64_t>(base + yi * w + xi) * 4);
+    };
+    const float t00 = texel(y0i, x0i);
+    const float t10 = texel(y0i, x1i);
+    const float t01 = texel(y1i, x0i);
+    const float t11 = texel(y1i, x1i);
+    const float top = t00 + (t10 - t00) * fx;
+    const float bot = t01 + (t11 - t01) * fx;
+    return top + (bot - top) * fy >= kAlphaCutoff;
+}
+
 // ---------------------------------------------------------------------------
 // W32: one warp per ray
 // ---------------------------------------------------------------------------
@@ -158,12 +240,13 @@ __device__ __forceinline__ int warp_argmin(float key, float& min_key) {
 
 // One ray's whole walk on a W32 table by the 32 lanes of a warp; every lane
 // returns the hit.
-template <bool kFirstHit>
+template <bool kFirstHit, bool kAlpha>
 __device__ __forceinline__ Hit walk_w32(int lane,
                                         const float* __restrict__ table,
                                         int32_t done, int32_t root_code,
                                         int32_t stack_depth,
                                         int32_t max_iters, bool strip_alpha,
+                                        const AlphaScene& alpha,
                                         const Ray r, float t_max) {
     static_assert(kMaxStack == 64, "the stack holds two entries per lane");
     // lane k's child in a bf16 pair word is its low half (k < 16) or its
@@ -224,8 +307,11 @@ __device__ __forceinline__ Hit walk_w32(int lane,
 #pragma unroll
                 for (int k = 0; k < 10; ++k)
                     f[k] = __ldg(rec + k * kLeafSize + lane);
-                key = triangle(f, r, best.t, strip_alpha, t, u, v, id)
-                      ? t : kBig;
+                bool ok = triangle(f, r, best.t, strip_alpha, t, u, v, id);
+                // a W32 table carries no alpha flags: every candidate
+                // reads its material
+                if (kAlpha && ok) ok = alpha_accept(alpha, id, u, v);
+                key = ok ? t : kBig;
             }
             if (__ballot_sync(kWarp, key < kBig) != 0) {
                 float m;
@@ -278,11 +364,11 @@ __device__ __forceinline__ Hit walk_w32(int lane,
     return best;
 }
 
-template <bool kFirstHit>
+template <bool kFirstHit, bool kAlpha>
 __global__ void __launch_bounds__(kBlock)
 warp_kernel(const float* __restrict__ table, int32_t done, int32_t root_code,
             int32_t stack_depth, int32_t max_iters, bool strip_alpha,
-            const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+            AlphaScene alpha, const float* __restrict__ ray_o, const float* __restrict__ ray_d,
             const float* __restrict__ inv_d, const float* __restrict__ t_min,
             const float* __restrict__ t_max,
             const uint8_t* __restrict__ active, int64_t n,
@@ -311,10 +397,9 @@ warp_kernel(const float* __restrict__ table, int32_t done, int32_t root_code,
                         __ldg(ray_d + 3 * i + 1), __ldg(ray_d + 3 * i + 2),
                         __ldg(inv_d + 3 * i), __ldg(inv_d + 3 * i + 1),
                         __ldg(inv_d + 3 * i + 2), __ldg(t_min + i)};
-            const Hit h = walk_w32<kFirstHit>(lane, table, done, root_code,
-                                              stack_depth, max_iters,
-                                              strip_alpha, r,
-                                              __ldg(t_max + i));
+            const Hit h = walk_w32<kFirstHit, kAlpha>(
+                lane, table, done, root_code, stack_depth, max_iters,
+                strip_alpha, alpha, r, __ldg(t_max + i));
             if (lane == j) res = h;
         }
         if (in) {
@@ -334,11 +419,11 @@ __device__ __forceinline__ float component(const float4& v, int c) {
     return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
 }
 
-template <bool kFirstHit>
+template <bool kFirstHit, bool kAlpha>
 __global__ void __launch_bounds__(kBlock)
 thread_kernel(const float* __restrict__ table, int32_t done,
               int32_t root_code, int32_t stack_depth, int32_t max_iters,
-              bool strip_alpha,
+              bool strip_alpha, AlphaScene alpha,
               const float* __restrict__ ray_o,
               const float* __restrict__ ray_d,
               const float* __restrict__ inv_d,
@@ -425,9 +510,14 @@ thread_kernel(const float* __restrict__ table, int32_t done,
                     for (int k = 0; k < 10; ++k) f[k] = component(fld[k], c);
                     float t, u, v;
                     int32_t id;
-                    const float key =
-                        triangle(f, r, best.t, strip_alpha, t, u, v, id)
-                        ? t : kBig;
+                    bool ok = triangle(f, r, best.t, strip_alpha, t, u, v,
+                                       id);
+                    // with alpha flags, an unflagged triangle is opaque
+                    if (kAlpha && ok
+                        && (!strip_alpha
+                            || (__float_as_int(f[9]) & kAlphaTidBit)))
+                        ok = alpha_accept(alpha, id, u, v);
+                    const float key = ok ? t : kBig;
                     if (key < ck) {
                         ck = key;
                         ctid = id;
@@ -482,37 +572,43 @@ thread_kernel(const float* __restrict__ table, int32_t done,
 // Launch
 // ---------------------------------------------------------------------------
 
-template <bool kFirstHit>
+template <bool kFirstHit, bool kAlpha>
 const void* kernel_for(int width) {
     if (width == 32) return reinterpret_cast<const void*>(
-        warp_kernel<kFirstHit>);
-    return reinterpret_cast<const void*>(thread_kernel<kFirstHit>);
+        warp_kernel<kFirstHit, kAlpha>);
+    return reinterpret_cast<const void*>(thread_kernel<kFirstHit, kAlpha>);
 }
 
-// Blocks of the (width, first_hit) kernel that one SM holds at once.
-cudaError_t resident_blocks(int width, bool first_hit, int* blocks) {
-    const void* fn = first_hit ? kernel_for<true>(width)
-                               : kernel_for<false>(width);
+// Blocks of the (width, first_hit, alpha) kernel that one SM holds at once.
+cudaError_t resident_blocks(int width, bool first_hit, bool alpha,
+                            int* blocks) {
+    const void* fn =
+        first_hit ? (alpha ? kernel_for<true, true>(width)
+                           : kernel_for<true, false>(width))
+                  : (alpha ? kernel_for<false, true>(width)
+                           : kernel_for<false, false>(width));
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kBlock,
                                                          0);
 }
 
 // The W32 persistent grid on the current device: its resident blocks per SM
 // times its SMs, worked out at the first launch on each device and kept.
-cudaError_t resident_grid(bool first_hit, int64_t* grid) {
+cudaError_t resident_grid(bool first_hit, bool alpha, int64_t* grid) {
     constexpr int kMaxDevices = 64;
-    static std::atomic<int64_t> cache[2][kMaxDevices];  // 0: not yet known
+    static std::atomic<int64_t> cache[4][kMaxDevices];  // 0: not yet known
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
     if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-    std::atomic<int64_t>& known = cache[first_hit ? 1 : 0][device];
+    std::atomic<int64_t>& known =
+        cache[(first_hit ? 1 : 0) + (alpha ? 2 : 0)][device];
     int64_t g = known.load(std::memory_order_relaxed);
     if (g == 0) {
         int sms = 0, per_sm = 0;
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      device);
-        if (err == cudaSuccess) err = resident_blocks(32, first_hit, &per_sm);
+        if (err == cudaSuccess)
+            err = resident_blocks(32, first_hit, alpha, &per_sm);
         if (err != cudaSuccess) return err;
         if (per_sm < 1) return cudaErrorLaunchOutOfResources;
         g = static_cast<int64_t>(per_sm) * sms;
@@ -522,10 +618,11 @@ cudaError_t resident_grid(bool first_hit, int64_t* grid) {
     return cudaSuccess;
 }
 
-template <bool kFirstHit>
+template <bool kFirstHit, bool kAlpha>
 cudaError_t launch(cudaStream_t stream, int width, int64_t n,
                    const float* table, int32_t done, int32_t root_code,
                    int32_t stack_depth, int32_t max_iters, bool strip_alpha,
+                   const AlphaScene& alpha,
                    const float* o, const float* d, const float* inv_d,
                    const float* t_min, const float* t_max,
                    const uint8_t* active, unsigned long long* next_ray,
@@ -533,22 +630,23 @@ cudaError_t launch(cudaStream_t stream, int width, int64_t n,
                    float* out_v) {
     const int64_t blocks = (n + kBlock - 1) / kBlock;  // one thread per ray
     if (width == 8) {
-        thread_kernel<kFirstHit><<<static_cast<unsigned>(blocks), kBlock, 0,
-                                   stream>>>(
-            table, done, root_code, stack_depth, max_iters, strip_alpha, o, d,
-            inv_d, t_min, t_max, active, n, out_t, out_tri, out_u, out_v);
+        thread_kernel<kFirstHit, kAlpha>
+            <<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(
+                table, done, root_code, stack_depth, max_iters, strip_alpha,
+                alpha, o, d, inv_d, t_min, t_max, active, n, out_t, out_tri,
+                out_u, out_v);
         return cudaGetLastError();
     }
     // W32: the warps the card holds at once, and no more blocks than the
     // rays fill (a block takes kBlock rays per round)
     int64_t resident = 0;
-    const cudaError_t err = resident_grid(kFirstHit, &resident);
+    const cudaError_t err = resident_grid(kFirstHit, kAlpha, &resident);
     if (err != cudaSuccess) return err;
     const unsigned grid =
         static_cast<unsigned>(blocks < resident ? blocks : resident);
-    warp_kernel<kFirstHit><<<grid, kBlock, 0, stream>>>(
-        table, done, root_code, stack_depth, max_iters, strip_alpha, o, d,
-        inv_d, t_min, t_max, active, n, next_ray, out_t, out_tri, out_u,
+    warp_kernel<kFirstHit, kAlpha><<<grid, kBlock, 0, stream>>>(
+        table, done, root_code, stack_depth, max_iters, strip_alpha, alpha, o,
+        d, inv_d, t_min, t_max, active, n, next_ray, out_t, out_tri, out_u,
         out_v);
     return cudaGetLastError();
 }
@@ -557,10 +655,13 @@ cudaError_t launch(cudaStream_t stream, int width, int64_t n,
 
 // Walks n rays through a W8 or W32 table. next_ray: one zeroed 64-bit
 // counter on the device, from which the W32 warps take their rays.
+// tri_shade and texels: the scene's shading rows and texel pool for the
+// alpha test, or both null for an opaque walk.
 extern "C" int dxrpt_traverse(const float* table, int32_t num_rows,
                               int32_t root_code, int32_t stack_depth,
                               int64_t max_iters, int32_t width,
                               int32_t first_hit, int32_t strip_alpha,
+                              const float* tri_shade, const float* texels,
                               const float* ray_o, const float* ray_d,
                               const float* inv_d, const float* t_min,
                               const float* t_max, const uint8_t* active,
@@ -570,36 +671,41 @@ extern "C" int dxrpt_traverse(const float* table, int32_t num_rows,
     if (n <= 0) return 0;
     // a walk visits each (node, mask) at most once: max_iters, about twice
     // the table's rows, fits 32 bits for any table that fits the card
+    const bool alpha = tri_shade != nullptr;
     if (stack_depth < 1 || stack_depth > kMaxStack
         || (width != 8 && width != 32) || max_iters < 1
-        || max_iters > INT32_MAX)
+        || max_iters > INT32_MAX || alpha != (texels != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const int32_t iters = static_cast<int32_t>(max_iters);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto* counter = static_cast<unsigned long long*>(next_ray);
     const bool strip = strip_alpha != 0;
+    const AlphaScene scene{tri_shade, texels};
+    auto go = [&](auto first, auto with_alpha) {
+        return launch<decltype(first)::value, decltype(with_alpha)::value>(
+            s, width, n, table, num_rows, root_code, stack_depth, iters,
+            strip, scene, ray_o, ray_d, inv_d, t_min, t_max, active, counter,
+            out_t, out_tri, out_u, out_v);
+    };
+    using T = std::true_type;
+    using F = std::false_type;
     const cudaError_t err =
-        first_hit
-            ? launch<true>(s, width, n, table, num_rows, root_code,
-                           stack_depth, iters, strip, ray_o, ray_d, inv_d,
-                           t_min, t_max, active, counter, out_t, out_tri,
-                           out_u, out_v)
-            : launch<false>(s, width, n, table, num_rows, root_code,
-                            stack_depth, iters, strip, ray_o, ray_d,
-                            inv_d, t_min, t_max, active, counter, out_t,
-                            out_tri, out_u, out_v);
+        first_hit ? (alpha ? go(T{}, T{}) : go(T{}, F{}))
+                  : (alpha ? go(F{}, T{}) : go(F{}, F{}));
     return static_cast<int>(err);
 }
 
-// Warps of the (width, first_hit) kernel that one SM holds at once (for
-// W32 the persistent grid is this times the SM count); a negative CUDA
+// Warps of the (width, first_hit, alpha) kernel that one SM holds at once
+// (for W32 the persistent grid is this times the SM count); a negative CUDA
 // error code on failure.
 extern "C" int dxrpt_traverse_resident_warps(int32_t width,
-                                             int32_t first_hit) {
+                                             int32_t first_hit,
+                                             int32_t alpha) {
     if (width != 8 && width != 32)
         return -static_cast<int>(cudaErrorInvalidValue);
     int blocks = 0;
-    const cudaError_t err = resident_blocks(width, first_hit != 0, &blocks);
+    const cudaError_t err =
+        resident_blocks(width, first_hit != 0, alpha != 0, &blocks);
     if (err != cudaSuccess) return -static_cast<int>(err);
     return blocks * (kBlock / 32);
 }

@@ -1,15 +1,17 @@
-"""Image output (host side): PNG / NPY export.
+"""Image output (host side): PNG / NPY / EXR export.
 
 The port of dxrpathtracer_tpu/render/film.py. The PNG writer uses the
 standard library alone (zlib, struct): 8-bit RGB, no interlace, filter 0 on
-every row. EXR output waits for the EXR codec's slice
-(ROADMAP.md Queue 1 item 9).
+every row. HDR film goes through the EXR codec in render/exr.py.
 """
 
 import struct
 import zlib
 
 import numpy as np
+
+from .exr import read_exr, write_exr  # noqa: F401 (re-exported film API)
+
 
 def to_uint8(img):
     return np.clip(np.asarray(img) * 255.0 + 0.5, 0, 255).astype(np.uint8)
@@ -40,12 +42,17 @@ def write_npy(path, img):
 
 
 def write_image(path, img):
-    """Dispatch on extension: .npy (raw f32), else PNG (LDR)."""
+    """Dispatch on extension: .npy (raw f32), .exr (HDR), else PNG (LDR)."""
     path = str(path)
     if path.endswith(".npy"):
         write_npy(path, img)
     elif path.endswith(".exr"):
-        raise NotImplementedError(
-            "EXR output is not ported yet (ROADMAP.md Queue 1 item 9)")
+        write_exr(path, np.asarray(img, np.float32))
     else:
         write_png(path, img)
+
+
+def rmse(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)))

@@ -1,17 +1,24 @@
 """Wavefront path-tracing integrator on torch tensors — the per-ray route.
 
-The port of dxrpathtracer_tpu/render/integrator.py for opaque scenes without
-spot lights. The reference's recursive megakernel (RayGen -> ClosestHit ->
-PathTrace -> recursive TraceRay, DXRPathTracer/RayTrace.hlsl:92-441) becomes a
-loop over path depth with the whole pixel wavefront carried as SoA tensors;
+The port of dxrpathtracer_tpu/render/integrator.py. The reference's
+recursive megakernel (RayGen -> ClosestHit -> PathTrace -> recursive
+TraceRay, DXRPathTracer/RayTrace.hlsl:92-441) becomes a loop over path depth
+with the whole pixel wavefront carried as SoA tensors;
 `radiance += throughput * child` unrolls into a carried throughput `beta`.
 
 Every ray goes through the per-ray traversal (accel/traverse.py): depth-1
-closest hit and depth-1 sun visibility on the W8 table `bvh`, every deeper ray
-and the terminal visibility ray on the W32 table `ray_bvh` — the tables the
-JAX package's default route uses. Its packet, sun-space grid, dense proxy,
-AABB cut and software raster are exact alternates of that walk and are not
-ported here. The frame is one wavefront in row-major lane order.
+closest hit and depth-1 sun and spot visibility on the W8 table `bvh`, every
+deeper ray and the terminal visibility ray on the W32 table `ray_bvh` — the
+tables the JAX package's default route uses. Its packet, sun-space grid,
+dense proxy, AABB cut and software raster are exact alternates of that walk
+and are not ported here. The frame is one wavefront in row-major lane order.
+
+Alpha testing runs inside the walk (the kernel's alpha instantiations, or
+the plain walk's accept_fn): the JAX package's in-loop accept_fn route. Its
+default route, punch-through (`_punch_through_closest`: opaque walks
+re-started past each rejected hit, at most 8 rounds, the last one taking
+what it finds as opaque), gives the same hits except past chains of more
+than 8 rejections and where its t*(1+4e-6)+1e-6 restart skips a surface.
 
 Semantics parity (each implemented below, as in the JAX package):
   - CMJ sample points: primary = set 0, bounce k = set k; permutation =
@@ -22,11 +29,14 @@ Semantics parity (each implemented below, as in the JAX package):
     compensation including the reference's -rayDir.z quirk in the
     specular-sample DFG lookup (:361)
   - sun NEE with the representative-point area-light approximation (:224-262)
+  - spot-light NEE with smoothstep angular attenuation and 4th-power
+    distance falloff (:264-313); shadow ray offset by 0.01 * normal, t in
+    [SpotShadowNearClip, dist - SpotShadowNearClip]
   - 50/50 lobe selection, cosine-hemisphere diffuse / GGX-VNDF specular
     (:315-376); terminal sky-visibility ray (:411-438)
+  - any-hit alpha test (opacity < 0.35 ignores the hit) only while depth <=
+    MaxAnyHitPathLength, else FORCE_OPAQUE (:129-133, :485-507)
   - final clamp to [0, FP16Max] and running-mean accumulation (:140-148)
-Alpha-tested scenes (ROADMAP.md Queue 1 item 7) and spot lights (item 8)
-raise NotImplementedError.
 """
 
 import dataclasses
@@ -35,12 +45,12 @@ import numpy as np
 import torch
 
 from ..accel.gather import row_gather
-from ..accel.traverse import any_hit, closest_hit
-from ..app.settings import AppSettings
+from ..accel.traverse import AlphaTest, any_hit, closest_hit
+from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings
 from ..core import brdf as brdf_lib
 from ..core import cmj
 from ..core.constants import FP16Max, FP32Max
-from ..core.math3 import dot, normalize, reflect, saturate, sqrt
+from ..core.math3 import dot, normalize, reflect, saturate, smoothstep, sqrt
 from ..core.sampling import sample_cosine_hemisphere, sample_ggx_visible_normal
 from ..scene.textures import bilinear_from_meta
 from ..scene.types import (PACKED_SLOTS, TRI_SHADE_MAT, TRI_SHADE_META,
@@ -170,26 +180,54 @@ def _sky_radiance(sky_cube, settings: AppSettings, dirs):
     return sample_cubemap(sky_cube, dirs)
 
 
-def _shadow_plan(settings: AppSettings, flags):
-    """Shadow-ray kinds in _shade_vertex's request order."""
+def _make_alpha_test(scene, settings: AppSettings) -> AlphaTest | None:
+    """The alpha test for traversal, or None when the scene has no
+    opacity-mapped materials (then every hit-group record is opaque,
+    DXRPathTracer.cpp:1176-1199). Called as accept_fn(tid, u, v) it is the
+    plain version of the kernel's test (JAX `_make_alpha_test`)."""
+    if not scene.any_opacity:
+        return None
+    return AlphaTest(scene.tri_shade, scene.texels)
+
+
+def _num_lights(scene, settings: AppSettings) -> int:
+    if not settings.render_lights:
+        return 0
+    return min(scene.num_lights, int(settings.max_light_clamp))
+
+
+def _shadow_plan(scene, settings: AppSettings, has_alpha: bool, flags):
+    """(kind, use_alpha) of each shadow request, in _shade_vertex's order."""
     s = settings
     plan = []
     if s.enable_sun and not flags["furnace"]:
-        plan.append("sun")
+        plan.append(("sun", flags["use_any_hit"] and has_alpha))
+    plan += [("spot", flags["use_any_hit"] and has_alpha)] * _num_lights(
+        scene, s)
     if not flags["continue_paths"] and not flags["furnace"]:
-        plan.append("terminal")
+        plan.append(("terminal", flags["terminal_any_hit"] and has_alpha))
     return plan
 
 
-def _check_supported(scene, settings: AppSettings):
-    if scene.any_opacity:
-        raise NotImplementedError(
-            "alpha-tested materials are not ported yet (ROADMAP.md Queue 1 "
-            "item 7)")
-    if settings.render_lights and min(scene.num_lights,
-                                      int(settings.max_light_clamp)) > 0:
-        raise NotImplementedError(
-            "spot-light NEE is not ported yet (ROADMAP.md Queue 1 item 8)")
+def _shadow_calls(bvh, ray_bvh, alpha, depth: int, plan, reqs):
+    """The any-hit launches that answer one vertex's shadow requests:
+    [(kind, table, (origin, dir, tmin, tmax, mask), alpha or None,
+    request positions)]. Depth-1 sun and spot rays walk the W8 table, the
+    rest W32. The spot rays of all lights go in ONE launch, their requests
+    concatenated (the JAX package makes one any_hit call per light, each a
+    lockstep loop on the TPU; here each ray's walk is its own, so the
+    results are the same and the launches fewer)."""
+    calls = []
+    for kind in ("sun", "spot", "terminal"):
+        pos = [i for i, (k, _) in enumerate(plan) if k == kind]
+        if not pos:
+            continue
+        use_alpha = plan[pos[0]][1]
+        table = bvh if (depth == 1 and kind != "terminal") else ray_bvh
+        r = reqs[pos[0]] if len(pos) == 1 else tuple(
+            torch.cat([reqs[i][k] for i in pos]) for k in range(5))
+        calls.append((kind, table, r, alpha if use_alpha else None, pos))
+    return calls
 
 
 def _shade_vertex(scene, sky_cube, settings: AppSettings, frame: FrameConstants,
@@ -331,6 +369,37 @@ def _shade_vertex(scene, sky_cube, settings: AppSettings, frame: FrameConstants,
     else:
         sun_light = None
 
+    # ---- Spot-light NEE (RayTrace.hlsl:264-313) ----
+    spot_contribs = []  # (light, relevant), aligned with shadow_reqs order
+    lights = scene.lights
+    for li in range(_num_lights(scene, s)):
+        to_light = lights.position[li][None, :] - pos
+        dist = sqrt(torch.clamp_min(dot(to_light, to_light), 1e-20))
+        to_light = to_light / dist[..., None]
+        angle_f = saturate(dot(to_light, lights.direction[li][None, :]))
+        ang_att = smoothstep(lights.angular_attenuation_y[li],
+                             lights.angular_attenuation_x[li], angle_f)
+        dd = dist / lights.range[li]
+        dd2 = dd * dd  # dd ** 4 as XLA's integer_pow: (dd*dd)*(dd*dd)
+        falloff = saturate(1.0 - dd2 * dd2)
+        falloff = (falloff * falloff) / (dist * dist + 1.0)
+        ang_att = ang_att * falloff
+        # NdotL <= 0 zeroes calc_lighting exactly: cull those lanes' shadow
+        # walk too, as the lanes outside the cone or range
+        relevant = hit & (ang_att > 0.0) & (dot(normal_ws, to_light) > 0.0)
+        shadow_reqs.append((
+            pos + normal_ws * 0.01, to_light,
+            torch.full((n,), SPOT_SHADOW_NEAR_CLIP, dtype=f32, device=dev),
+            torch.clamp_min(dist - SPOT_SHADOW_NEAR_CLIP,
+                            SPOT_SHADOW_NEAR_CLIP),
+            relevant))
+        light = brdf_lib.calc_lighting(
+            normal_ws, to_light,
+            lights.intensity[li][None, :] * ang_att[..., None],
+            diffuse_albedo, specular_albedo, roughness, pos,
+            incoming_origin, ms_comp)
+        spot_contribs.append((light, relevant))
+
     # ---- BRDF sampling (RayTrace.hlsl:315-376) ----
     set_idx = first_set_idx + (depth - 1)
     permutation = (set_idx * total_num_pixels + pixel_idx) & 0xFFFFFFFF
@@ -389,7 +458,7 @@ def _shade_vertex(scene, sky_cube, settings: AppSettings, frame: FrameConstants,
     mid = dict(hit=hit, lane_dead=lane_dead, local=local,
                throughput=throughput, ray_dir_ws=ray_dir_ws,
                pick_diffuse=pick_diffuse, roughness=roughness, pos=pos,
-               sun_light=sun_light)
+               sun_light=sun_light, spot_contribs=tuple(spot_contribs))
     return state, tuple(shadow_reqs), mid
 
 
@@ -411,6 +480,10 @@ def _apply_vertex(settings: AppSettings, sky_cube, depth: int, flags, state,
     ri = 0
     if mid["sun_light"] is not None:
         local = local + mid["sun_light"] * vis_list[ri][..., None]
+        ri += 1
+    for light, relevant in mid["spot_contribs"]:
+        local = local + torch.where(relevant[..., None],
+                                    light * vis_list[ri][..., None], 0.0)
         ri += 1
 
     if depth == 1 and not s.enable_direct:
@@ -454,30 +527,37 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     """Trace a wavefront of depth-1 rays to completion; returns (N, 3)
     radiance clamped to [0, FP16Max].
 
-    `bvh` (W8) answers depth-1 closest hits and depth-1 sun visibility;
-    `ray_bvh` (W32) every other traversal. `first_set_idx` is the CMJ sample
+    `bvh` (W8) answers depth-1 closest hits and depth-1 sun and spot
+    visibility; `ray_bvh` (W32) every other traversal. Rays at depths <=
+    max_any_hit_path_length are alpha-tested on alpha-tested scenes (the
+    terminal ray one depth later). `first_set_idx` is the CMJ sample
     set of the first PathTrace vertex (raygen consumed set 0). The baker
     passes initial_is_diffuse=True, t_min0=1e-4, its coverage as `active0`
     and its own sample counter as `sample_idx` (BakeRayGen,
     Baking.hlsl:395-409); otherwise the CMJ index is the frame's."""
     s = settings
-    _check_supported(scene, s)
+    n = ray_o.shape[0]
     cmj_sample_idx = frame.curr_sample_idx if sample_idx is None else sample_idx
+    alpha = _make_alpha_test(scene, s)
     state = _path_state0(ray_o, ray_d, t_max, t_min0, active0,
                          initial_is_diffuse)
     for depth, flags in _depth_schedule(s):
         table = bvh if depth == 1 else ray_bvh
         rec = closest_hit(table, state["ray_o"], state["ray_d"],
-                          state["t_min"], state["t_max"], state["active"])
+                          state["t_min"], state["t_max"], state["active"],
+                          alpha=alpha if flags["use_any_hit"] else None)
         state, reqs, mid = _shade_vertex(
             scene, sky_cube, s, frame, depth, flags, state, rec, pixel_idx,
             total_num_pixels, first_set_idx, cmj_sample_idx)
         if flags["early_stop"]:
             break
-        vis_list = []
-        for kind, r in zip(_shadow_plan(s, flags), reqs):
-            table = bvh if (depth == 1 and kind == "sun") else ray_bvh
-            vis_list.append(any_hit(table, *r))
+        plan = _shadow_plan(scene, s, alpha is not None, flags)
+        vis_list = [None] * len(reqs)
+        for _, table, r, a, positions in _shadow_calls(bvh, ray_bvh, alpha,
+                                                       depth, plan, reqs):
+            vis = any_hit(table, *r, alpha=a)
+            for j, i in enumerate(positions):
+                vis_list[i] = vis[j * n:(j + 1) * n]
         state = _apply_vertex(s, sky_cube, depth, flags, state, mid, vis_list)
     return torch.clamp(state["total"], 0.0, FP16Max)
 

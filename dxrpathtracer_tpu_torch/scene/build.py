@@ -10,7 +10,8 @@ import numpy as np
 
 from .procedural import MeshData
 from .textures import AtlasBuilder, default_material_table
-from .types import MaterialTable, Scene, pack_material_meta, pack_tri_shade
+from .types import (MaterialTable, Scene, SpotLights, pack_material_meta,
+                    pack_tri_shade)
 
 
 def flatten_meshes(meshes: list[MeshData]):
@@ -40,8 +41,10 @@ def flatten_meshes(meshes: list[MeshData]):
 
 
 def build_scene(meshes: list[MeshData], materials: MaterialTable | None = None,
-                atlas_builder: AtlasBuilder | None = None) -> Scene:
-    """Build a Scene of CPU tensors; move it with `scene.to(device)`."""
+                atlas_builder: AtlasBuilder | None = None,
+                lights: SpotLights | None = None) -> Scene:
+    """Build a Scene of CPU tensors (no spot lights unless given); move it
+    with `scene.to(device)`."""
     pos, nrm, uv, tan, bit, tri, tri_mat = flatten_meshes(meshes)
     if atlas_builder is None:
         atlas_builder = AtlasBuilder()
@@ -64,4 +67,4 @@ def build_scene(meshes: list[MeshData], materials: MaterialTable | None = None,
         texture_meta=texture_meta,
         packed_meta=packed_meta,
         has_opacity=np.asarray(materials.has_opacity, bool),
-    ))
+    ), lights=lights)

@@ -17,6 +17,9 @@ import dataclasses
 import numpy as np
 import torch
 
+MAX_SPOT_LIGHTS = 32  # AppSettings.cs:92 MaxSpotLights
+SPOT_LIGHT_RANGE = 7.5  # AppSettings.cs:94
+
 
 @dataclasses.dataclass(frozen=True)
 class MaterialTable:
@@ -92,6 +95,63 @@ def pack_tri_shade(positions, normals, uvs, tangents, bitangents,
     return out
 
 
+LIGHT_ARRAYS = ("position", "direction", "intensity", "angular_attenuation_x",
+                "angular_attenuation_y", "range")
+
+
+@dataclasses.dataclass(frozen=True)
+class SpotLights:
+    """Spot lights, padded to MAX_SPOT_LIGHTS (SharedTypes.h:40-48); the
+    first `num_lights` rows are lights."""
+
+    position: torch.Tensor   # (L, 3) f32
+    direction: torch.Tensor  # (L, 3) stored negated: surface -> light axis
+    intensity: torch.Tensor  # (L, 3)
+    angular_attenuation_x: torch.Tensor  # (L,) cos(inner/2)
+    angular_attenuation_y: torch.Tensor  # (L,) cos(outer/2)
+    range: torch.Tensor      # (L,)
+    num_lights: int = 0
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, num_lights: int) -> "SpotLights":
+        return cls(**{k: torch.from_numpy(np.array(arrays[k], np.float32))
+                      for k in LIGHT_ARRAYS}, num_lights=int(num_lights))
+
+    def to(self, device) -> "SpotLights":
+        return dataclasses.replace(
+            self, **{k: getattr(self, k).to(device) for k in LIGHT_ARRAYS})
+
+
+def make_spot_lights(positions=None, directions=None, intensities=None,
+                     angular_attenuation=None,
+                     light_range=SPOT_LIGHT_RANGE) -> SpotLights:
+    """Padded SpotLights (CPU tensors), as the JAX package's make_spot_lights
+    (DXRPathTracer::InitializeScene, DXRPathTracer.cpp:965-980): the stored
+    direction is the negated model light direction and the angular
+    attenuation values are cos(angle/2) of the (inner, outer) angles."""
+    if positions is None or len(positions) == 0:
+        z3 = np.zeros((MAX_SPOT_LIGHTS, 3), np.float32)
+        z1 = np.zeros((MAX_SPOT_LIGHTS,), np.float32)
+        return SpotLights.from_numpy(dict(
+            position=z3, direction=z3, intensity=z3, angular_attenuation_x=z1,
+            angular_attenuation_y=z1, range=z1 + light_range), 0)
+    n = min(len(positions), MAX_SPOT_LIGHTS)
+
+    def pad(a, cols):
+        out = np.zeros((MAX_SPOT_LIGHTS,) + cols, np.float32)
+        out[:n] = np.asarray(a, np.float32)[:n]
+        return out
+
+    ang = np.asarray(angular_attenuation, np.float32)[:n]  # (n, 2) angles
+    return SpotLights.from_numpy(dict(
+        position=pad(positions, (3,)),
+        direction=pad(directions, (3,)),
+        intensity=pad(intensities, (3,)),
+        angular_attenuation_x=pad(np.cos(ang[:, 0] * 0.5), ()),
+        angular_attenuation_y=pad(np.cos(ang[:, 1] * 0.5), ()),
+        range=pad(np.full(n, light_range, np.float32), ())), n)
+
+
 SCENE_ARRAYS = ("positions", "normals", "uvs", "tangents", "bitangents",
                 "tri_idx", "tri_material", "tri_shade", "texels",
                 "texture_meta", "packed_meta", "has_opacity")
@@ -113,20 +173,28 @@ class Scene:
     texture_meta: torch.Tensor  # (num_textures, 3) int32: base, width, height
     packed_meta: torch.Tensor   # (M, 20) int32 (pack_material_meta)
     has_opacity: torch.Tensor   # (M,) bool
-    num_lights: int = 0
+    lights: SpotLights
     any_opacity: bool = False
 
     @classmethod
-    def from_numpy(cls, arrays: dict, num_lights: int = 0) -> "Scene":
-        """CPU tensors sharing memory with the given host arrays."""
+    def from_numpy(cls, arrays: dict,
+                   lights: SpotLights | None = None) -> "Scene":
+        """CPU tensors sharing memory with the given host arrays; no lights
+        unless given."""
         tensors = {k: torch.from_numpy(np.ascontiguousarray(arrays[k]))
                    for k in SCENE_ARRAYS}
-        return cls(**tensors, num_lights=int(num_lights),
+        return cls(**tensors,
+                   lights=make_spot_lights() if lights is None else lights,
                    any_opacity=bool(np.asarray(arrays["has_opacity"]).any()))
 
     def to(self, device) -> "Scene":
         return dataclasses.replace(
-            self, **{k: getattr(self, k).to(device) for k in SCENE_ARRAYS})
+            self, lights=self.lights.to(device),
+            **{k: getattr(self, k).to(device) for k in SCENE_ARRAYS})
+
+    @property
+    def num_lights(self) -> int:
+        return self.lights.num_lights
 
     @property
     def num_triangles(self) -> int:

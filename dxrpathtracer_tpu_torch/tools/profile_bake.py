@@ -29,10 +29,17 @@ def main():
         raise SystemExit("profile_bake: no CUDA device")
     sess = RenderSession(AppSettings(current_scene=Scenes.Sponza), 8, 8)
     baker = Baker(sess, resolution=RESOLUTION, atlas_mode="pair")
-    baker.bake_step()  # warm-up
+    profile_step(f"bake step {RESOLUTION}^2 (pair atlas)", baker.bake_step)
+
+
+def profile_step(label: str, step):
+    """One warm-up call of step(), one timed, one traced; prints the wall
+    ms (profiled and not), the device time, the idle share and the kernels
+    with the most device time."""
+    step()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    baker.bake_step()
+    step()
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
 
@@ -40,7 +47,7 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        baker.bake_step()
+        step()
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
 
@@ -51,11 +58,10 @@ def main():
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"bake step {RESOLUTION}^2 (pair atlas): "
-          f"{plain_s * 1e3:.1f} ms unprofiled, {profiled_s * 1e3:.1f} ms "
-          f"profiled; device time {device_ms:.1f} ms in "
-          f"{sum(r[1] for r in rows)} launches; idle share "
-          f"{(1.0 - device_ms / (profiled_s * 1e3)) * 100:.1f} %")
+    print(f"{label}: {plain_s * 1e3:.1f} ms unprofiled, "
+          f"{profiled_s * 1e3:.1f} ms profiled; device time "
+          f"{device_ms:.1f} ms in {sum(r[1] for r in rows)} launches; idle "
+          f"share {(1.0 - device_ms / (profiled_s * 1e3)) * 100:.1f} %")
     for us, count, name in rows[:TOP]:
         print(f"  {us / 1e3:9.2f} ms  {count:6d} x  {name[:110]}")
 

@@ -20,9 +20,26 @@ Every ray set mixes t_min in {0, 1e-4, 0.5} and t_max in {3.5, 7.5, 1e30}
 and leaves about a fifth of its rays inactive. Used by
 tests/test_torch_traverse.py (the port's plain walk against the JAX package)
 and chip_smoke.py (the CUDA kernel against the plain walk, on the card).
+
+`alpha_cases` adds four alpha-test cases, each a list of meshes (material 0
+opaque, material 1 alpha-tested), its opacity mask and rays:
+
+  - "alpha_cutoff": a card whose mask holds bands of exactly 0.35 (an
+    opacity of exactly 0.35 passes), of the float just below (fails), of 1
+    and of 0;
+  - "alpha_stack": 16 stacked cards, each shifted so that a ray crosses the
+    mask's transparent part on the first few to all of them: chains of up
+    to 16 rejections, where the in-loop test and the JAX package's
+    punch-through (at most 8 rounds) part ways;
+  - "alpha_coplanar": an opaque and an alpha-tested quad in one plane, hit
+    at equal t;
+  - "alpha_edge_on": a card seen edge-on and at grazing angles.
+Used by tests/test_torch_alpha.py and chip_smoke.py.
 """
 
 import numpy as np
+
+from ..scene.procedural import make_plane
 
 CUBE_LO = np.array([-2.0, 1.0, -2.0], np.float32)   # the block of cubes
 CUBE_DIMS = (4, 2, 4)
@@ -163,6 +180,89 @@ def tie_rays(scene, seed=1, n_axis=1024, n_face=512, n_repeat=512,
     tmin[face] = np.where(rng.random(n_face) < 0.75, np.float32(0.0),
                           tmin[face])
     return dict(o=o, d=d, tmin=tmin, tmax=tmax, active=active)
+
+
+def _band_mask(values, size=64):
+    """(size, size, 1) f32 mask of vertical bands, one per value, in u."""
+    cols = np.repeat(np.asarray(values, np.float32), size // len(values))
+    return np.broadcast_to(cols[None, :, None], (size, size, 1)).copy()
+
+
+def _down_rays(rng, n, x, z, y0=5.0, tilt=0.2):
+    """n rays from height y0 down onto the points (x, z), a little tilted."""
+    o = np.stack([x, np.full(n, y0), z], 1).astype(np.float32)
+    d = np.stack([rng.uniform(-tilt, tilt, n), -np.ones(n),
+                  rng.uniform(-tilt, tilt, n)], 1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def _alpha_rays(rng, o, d, tmax=1e30):
+    n = len(o)
+    tmin = rng.choice(np.float32([0.0, 1e-4]), size=n)
+    return dict(o=o.astype(np.float32), d=d.astype(np.float32), tmin=tmin,
+                tmax=np.full(n, tmax, np.float32), active=rng.random(n) > 0.1)
+
+
+def alpha_cases(seed=0, n=2048):
+    """{name: (meshes, mask, rays)} of the four alpha cases (see the module
+    docstring); the meshes' material 1 is alpha-tested by `mask`."""
+    rng = np.random.default_rng(seed)
+    floor = make_plane((20.0, 20.0), (0.0, -10.0, 0.0), material_idx=0)
+    out = {}
+
+    below = np.nextafter(np.float32(0.35), np.float32(0.0))
+    o, d = _down_rays(rng, n, rng.uniform(-1.2, 1.2, n),
+                      rng.uniform(-1.2, 1.2, n))
+    out["alpha_cutoff"] = (
+        [floor, make_plane((2.0, 2.0), (0.0, 0.0, 0.0), material_idx=1)],
+        _band_mask([0.35, below, 1.0, 0.0]), _alpha_rays(rng, o, d))
+
+    # card k at y = -0.5 k, shifted -0.08 k in x: a ray at x0 crosses card
+    # k at u = (x0 + 0.08 k + 1) / 2, opaque from u = 0.75 on
+    stack = [make_plane((2.0, 2.0), (-0.08 * k, -0.5 * k, 0.0),
+                        material_idx=1) for k in range(16)]
+    o, d = _down_rays(rng, n, rng.uniform(-1.0, 0.6, n),
+                      rng.uniform(-0.9, 0.9, n), tilt=0.02)
+    out["alpha_stack"] = ([floor] + stack, _band_mask([0.0, 0.0, 0.0, 1.0]),
+                          _alpha_rays(rng, o, d))
+
+    yy, xx = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    checker = (((yy // 8 + xx // 8) % 2).astype(np.float32))[..., None]
+    o, d = _down_rays(rng, n, rng.uniform(-1.5, 1.5, n),
+                      rng.uniform(-1.5, 1.5, n))
+    out["alpha_coplanar"] = (
+        [floor, make_plane((2.0, 2.0), (0.5, 0.0, 0.0), material_idx=0),
+         make_plane((2.0, 2.0), (-0.5, 0.0, 0.0), material_idx=1)],
+        checker, _alpha_rays(rng, o, d))
+
+    # in the card's plane y = 0 (det exactly 0), and grazing it
+    m = n // 2
+    o_in = np.stack([rng.uniform(-3, -1.5, m), np.zeros(m),
+                     rng.uniform(-0.9, 0.9, m)], 1)
+    d_in = np.stack([np.ones(m), np.zeros(m), rng.uniform(-0.3, 0.3, m)], 1)
+    o_gr = np.stack([rng.uniform(-3, -1.5, n - m),
+                     rng.choice([-1e-3, -1e-6, 1e-6, 1e-3], n - m),
+                     rng.uniform(-0.9, 0.9, n - m)], 1)
+    d_gr = np.stack([np.ones(n - m),
+                     rng.choice([-1e-3, -1e-6, 0.0, 1e-6, 1e-3], n - m),
+                     rng.uniform(-0.3, 0.3, n - m)], 1)
+    d = np.concatenate([d_in, d_gr])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    out["alpha_edge_on"] = (
+        [floor, make_plane((2.0, 2.0), (0.0, 0.0, 0.0), material_idx=1)],
+        checker, _alpha_rays(rng, np.concatenate([o_in, o_gr]), d))
+    return out
+
+
+def alpha_case_scene(meshes, mask):
+    """The port's Scene (CPU tensors) of an alpha case."""
+    from ..scene.build import build_scene
+    from ..scene.registry import alpha_materials
+    from ..scene.textures import AtlasBuilder
+    builder = AtlasBuilder()
+    materials = alpha_materials(builder, "alpha_case_opacity", mask)
+    return build_scene(meshes, materials=materials, atlas_builder=builder)
 
 
 def cases(seed=0):

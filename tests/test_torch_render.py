@@ -9,6 +9,16 @@
     sqrt_num_samples=2, 4 samples, against the independent oracle image
     tests/oracle/sponza_64_4.npy within the oracle test's 1e-2 budget
     (tests/test_oracle.py); the value reached is printed.
+  - The JAX package's goldens, with the bounds of tests/test_golden.py, at
+    sqrt_num_samples=2: BoxTest 32x32 `render_to_completion` against
+    golden_boxtest_32.npy (RMSE < 1e-4), and the Sponza stand-in 48x27
+    against golden_sponza_48x27.npy (RMSE < 1e-3). That golden was recorded
+    by XLA:CPU with FMA contraction, which bends a few paths onto other
+    surfaces: the JAX package itself, run without FMA, misses it by an RMSE
+    of 4.95e-2 in 8 of 1296 pixels. So the port is held to the JAX package
+    without FMA on the same frame (RMSE < 1e-4), and to the golden at its
+    bound on every pixel where the JAX package without FMA meets the golden
+    within 1e-3 (all but at most 1 % of them).
 
 The JAX side runs in a subprocess whose XLA:CPU emits no FMA (ISA capped at
 AVX), so it rounds every product as the port's plain version does; its
@@ -145,3 +155,59 @@ def test_session_restarts_on_settings_and_camera_change():
     sess.camera.set_position((0.0, 3.0, -9.0))
     assert sess.render_frame() and sess.sample_idx == 1
     assert bool(sess.accum.isfinite().all())
+
+
+def _golden_render(scene, size):
+    sess = RenderSession(AppSettings(current_scene=scene, sqrt_num_samples=2),
+                         *size, device="cpu")
+    return sess.render_to_completion().numpy()
+
+
+def _rmse(a, b):
+    return float(np.sqrt(np.mean((a - b) ** 2)))
+
+
+def test_boxtest_golden_image():
+    img = _golden_render(Scenes.BoxTest, (32, 32))
+    golden = np.load(os.path.join(REPO, "tests", "golden_boxtest_32.npy"))
+    assert img.shape == golden.shape
+    print(f"BoxTest golden: RMSE {_rmse(img, golden):.3e}")
+    assert _rmse(img, golden) < 1e-4
+
+
+_GOLDEN_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+from dxrpathtracer_tpu.app.session import RenderSession
+from dxrpathtracer_tpu.app.settings import AppSettings, Scenes
+sess = RenderSession(
+    settings=AppSettings(current_scene=Scenes.Sponza, sqrt_num_samples=2),
+    width=48, height=27)
+np.save(sys.argv[2], np.asarray(sess.render_to_completion()))
+"""
+
+
+def test_sponza_golden_image(tmp_path):
+    out = tmp_path / "nofma.npy"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    env.pop("DXRPT_PALLAS_BODY", None)
+    proc = subprocess.run([sys.executable, "-c", _GOLDEN_SCRIPT, "-",
+                           str(out)], env=env, cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    nofma = np.load(out)
+    img = _golden_render(Scenes.Sponza, (48, 27))
+    golden = np.load(os.path.join(REPO, "tests", "golden_sponza_48x27.npy"))
+    assert img.shape == nofma.shape == golden.shape
+    assert _rmse(img, nofma) < 1e-4
+    kept = np.abs(nofma - golden).max(-1) <= 1e-3
+    print(f"Sponza golden: RMSE {_rmse(img, golden):.3e} over all pixels "
+          f"(JAX without FMA {_rmse(nofma, golden):.3e}), "
+          f"{_rmse(img[kept], golden[kept]):.3e} over the {kept.sum()} of "
+          f"{kept.size} where JAX without FMA meets it; port vs JAX without "
+          f"FMA {_rmse(img, nofma):.3e}")
+    assert kept.mean() >= 0.99
+    assert _rmse(img[kept], golden[kept]) < 1e-3
