@@ -7,9 +7,11 @@ them: the path-traced frame (the Sponza-class stand-in, 246,084 triangles, at
 alpha-tested, spot-lit frame (SponzaAlpha-checker: the stand-in plus 384
 alpha-tested foliage cards with a checker opacity mask and four spot lights,
 dxrpathtracer_tpu_torch/tools/alpha_cases.py; same size and path length),
-the `render` command, and the GI lightmap bake (the stand-in, a 4096x4096
+the `render` command, the GI lightmap bake (the stand-in, a 4096x4096
 lightmap on the pair atlas, default settings: path length 3,
-sqrt_num_samples 4). Phases, each fatal on failure:
+sqrt_num_samples 4), and raster mode (both scenes at 1080p MSAA4x, sun
+shadows by rays or cascaded depth maps, and the raster commands). Phases,
+each fatal on failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
@@ -84,6 +86,34 @@ sqrt_num_samples 4). Phases, each fatal on failure:
      map's gathers at 4096^2; each with M rows/s and its bound;
   8. same bake, kernels against plain: BoxTest at 64x64, 2 steps, on the
      card and on the CPU; relative RMSE <= 1e-4 and validCount equal.
+  R1. raster frame main path (EnableRayTracing=false, the reference's
+     defaults: MSAA4x, cluster mode 3): the opaque stand-in at 1080p with
+     sun shadow rays; median ms/frame over 10 frames after the first with
+     the spread, the profiler's scope ms, traversal launches per frame by
+     instantiation (one primary closest, one sun any) and the gather's;
+     the frame must be finite and lit;
+  R2. the alpha raster frame: SponzaAlpha-checker at 1080p MSAA4x in the
+     rays, pcf, evsm and msm shadow modes, 5 frames each after a first:
+     ms/frame, the profiler's five scope ms, launches per frame (rays: one
+     primary closest and two any-hit launches, the sun's and the four
+     spots'; the map modes: three closest-hit launches, the cascade
+     depth, spot depth and primary rays);
+  R3. raster ray classes, kernel against plain: the calls of a rays and a
+     pcf frame of R2's session as the frame makes them (primary closest,
+     sun any, the four spots' any in one launch, cascade depth 4 x 512^2,
+     spot depth 4 x 1024^2; all W32 with the alpha test): 0 lanes that
+     differ in any bit; ms, visits, bound as in phase 3;
+  R4. same raster frame, kernels against plain: SponzaAlpha-checker at
+     240x135 on the card and on the CPU, rays and pcf (cascade maps
+     128^2): relative RMSE <= 1e-4; every traversal call's rays and
+     results recorded on both routes, as in phase C: per call, the lanes
+     whose rays differ and whose results differ, none of which may have
+     bit-equal rays;
+  R5. the raster commands as subprocesses on the card: `bake` BoxTest
+     256^2 (pair atlas) into an .npz bundle, `render --raster --lightmap`
+     from it, `render --raster --shadow-mode pcf --profile-trace` on the
+     stand-in (the trace must hold kernel events), `uvviz`; the PNGs'
+     sizes and the HDR frames' finiteness are checked.
 
 BOUND: the least time the card could take, the larger of the bytes moved
 (each input read once, each output written once) over 3.35 TB/s (NVIDIA H100
@@ -103,22 +133,28 @@ rows of `width` words moves its distinct rows, its indices and its output:
 n*width*4*2 + n*4 B, every gathered row counted as a read from memory.
 
 An alpha class adds to its bound the texture taps its walk takes: TAP_OPS
-f32 operations and TAP_BYTES (four channel-0 texels) each.
+f32 operations and TAP_BYTES (four channel-0 texels) each. The plain walk
+steps the active rays only (an inactive ray keeps t_max and tri id -1
+without a step), so its time counts no inactive lane.
 
 The line before the last is {"kernels": [...]}: one entry per traversal
 instantiation and one for the gather kernel, whose `launches` count the
-main paths' runs (the opaque frame, the alpha frames and the bake) and
+main paths' runs (the opaque frame, the alpha frames, the bake and the
+raster frames of R1 and R2) and
 every one of which must be > 0; the last is {"ok": true, "device": {...}}.
 Full results also go to chiprun_out/chip_smoke.json. Exits non-zero, with
 no result line, when there is no CUDA device or any phase fails. Imports no
 JAX.
 """
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -289,15 +325,18 @@ def ptxas_report(log_text):
 
 def plain_walk(bvh, first_hit, o, d, inv_d, tmin, tmax, act, alpha=None,
                counts=None):
-    """traverse_plain over chunks of PLAIN_CHUNK rays (each ray's walk is
-    its own, so the chunks give the whole call's hits); with `counts`, adds
-    every chunk's walk_counts to it instead and returns None."""
+    """traverse_plain over the active rays, in chunks of PLAIN_CHUNK (each
+    ray's walk is its own, so the chunks give the whole call's hits; an
+    inactive ray's walk takes no step and keeps t = t_max, tri id -1,
+    u = v = 0); with `counts`, adds every chunk's walk_counts to it instead
+    and returns None."""
     from dxrpathtracer_tpu_torch.accel.traverse import (HitRecord,
                                                         traverse_plain)
+    lanes = act.nonzero()[:, 0]
     parts = []
-    for i in range(0, o.shape[0], PLAIN_CHUNK):
-        sl = slice(i, i + PLAIN_CHUNK)
-        rays = (o[sl], d[sl], inv_d[sl], tmin[sl], tmax[sl], act[sl])
+    for i in range(0, lanes.shape[0], PLAIN_CHUNK):
+        sel = lanes[i:i + PLAIN_CHUNK]
+        rays = (o[sel], d[sel], inv_d[sel], tmin[sel], tmax[sel], act[sel])
         if counts is None:
             parts.append(traverse_plain(bvh, *rays, first_hit, alpha))
             continue
@@ -305,9 +344,21 @@ def plain_walk(bvh, first_hit, o, d, inv_d, tmin, tmax, act, alpha=None,
             counts[k] = (counts[k] | v if k == "touched" else
                          counts[k] + v) if k in counts else v
     if counts is not None:
+        counts.setdefault("touched", torch.zeros(
+            bvh.num_rows, dtype=torch.bool, device=o.device))
+        for k in ("internal", "leaf", "slots", "tris"):
+            counts.setdefault(k, 0)
         return None
-    return HitRecord(*(torch.cat([getattr(p, f) for p in parts])
-                       for f in ("t", "tri_id", "u", "v")))
+    n = o.shape[0]
+    out = HitRecord(t=tmax.clone(),
+                    tri_id=torch.full((n,), -1, dtype=torch.int32,
+                                      device=o.device),
+                    u=torch.zeros(n, device=o.device),
+                    v=torch.zeros(n, device=o.device))
+    for f in ("t", "tri_id", "u", "v"):
+        if parts:
+            getattr(out, f)[lanes] = torch.cat([getattr(p, f) for p in parts])
+    return out
 
 
 def ray_classes(sess):
@@ -427,11 +478,12 @@ def hit_mismatches(got, ref):
     return int(bad.sum())
 
 
-def phase_kernel_vs_plain(sess, label="traversal, five classes"):
-    """Every traversal class of one 1080p sample of `sess`: the kernel
-    against the plain walk, bit for bit, with times, counts and bounds.
-    Returns (rows by class, max |err|, totals, the depth-1 closest hit ids,
-    sums by kernel instantiation)."""
+def phase_kernel_vs_plain(sess, label="traversal, five classes",
+                          classes=None):
+    """Every traversal class of one 1080p sample of `sess` (or `classes`,
+    as ray_classes gives them): the kernel against the plain walk, bit for
+    bit, with times, counts and bounds. Returns (rows by class, max |err|,
+    totals, the depth-1 closest hit ids, sums by kernel instantiation)."""
     from dxrpathtracer_tpu_torch.accel import traverse
     from dxrpathtracer_tpu_torch.accel.bvh import LEAF_SIZE
     results, max_err = {}, 0.0
@@ -439,8 +491,10 @@ def phase_kernel_vs_plain(sess, label="traversal, five classes"):
              "ops_ms": 0.0, "filled_ops_ms": 0.0}
     by_instance = {}
     d1_hits = None
+    if classes is None:
+        classes = ray_classes(sess)
     for name, (bvh, first_hit, o, d, tmin, tmax, act, alpha) in \
-            ray_classes(sess).items():
+            classes.items():
         o, d = o.contiguous(), d.contiguous()
         tmin = torch.as_tensor(tmin, dtype=torch.float32, device=o.device)
         tmin = tmin.expand(o.shape[0]).contiguous()
@@ -1171,6 +1225,322 @@ def phase_same_bake():
                          f"{count_equal})")
     return {"rel_rmse": rel, "valid_count_equal": count_equal}
 
+# ---------------------------------------------------------------------------
+# Raster mode (EnableRayTracing=false)
+
+RASTER_FRAMES = 10      # R1: frames after the first
+RASTER_MODE_FRAMES = 5  # R2: frames after the first, per shadow mode
+SHADOW_MODES = ("rays", "pcf", "evsm", "msm")
+SAME_RASTER_MAP = 128   # R4's cascade map size (the spot maps are twice it)
+
+
+def timed_raster_frames(sess, frames, mode):
+    """The launch counts and the profiler set to 0, a first raster frame,
+    then `frames` frames, each synchronised: (first frame s, frame s,
+    launches of all of them, the last frame, the profiler's scope ms)."""
+    from dxrpathtracer_tpu_torch.app.profiler import Profiler
+    sess.profiler = Profiler(sess.device)
+    reset_launches()
+    t0 = time.time()
+    img = sess.render_raster_frame(shadow_mode=mode)
+    sync()
+    first_s = time.time() - t0
+    dts = []
+    for _ in range(frames):
+        t0 = time.time()
+        img = sess.render_raster_frame(shadow_mode=mode)
+        sync()
+        dts.append(time.time() - t0)
+    launches = read_launches()
+    scopes = {k: v["avg"] * 1e3 for k, v in sess.profiler.stats().items()}
+    h, w = sess.height, sess.width
+    if tuple(img.shape) != (h, w, 3) or not bool(img.isfinite().all()) \
+            or float(img.max()) <= 0.0:
+        raise SystemExit(f"chip_smoke: the {mode} raster frame is not a "
+                         f"finite, lit {h}x{w}x3 image: shape "
+                         f"{tuple(img.shape)}, "
+                         f"{int((~img.isfinite()).sum())} values not "
+                         f"finite, max {float(img.nan_to_num().max())}")
+    return first_s, dts, launches, img, scopes
+
+
+def raster_run(label, sess, frames, mode, smi, want_per_frame):
+    """One timed raster run; its traversal launches per frame must be
+    `want_per_frame` ({instantiation: count}) and the gather must launch."""
+    first_s, dts, launches, img, scopes = timed_raster_frames(sess, frames,
+                                                              mode)
+    med = statistics.median(dts)
+    spread = (max(dts) - min(dts)) / med * 100.0
+    per_frame = {k: v / (frames + 1) for k, v in
+                 launches["traverse_by_instance"].items()}
+    row = {"first_frame_s": first_s, "ms_per_frame_median": med * 1e3,
+           "ms_per_frame": [t * 1e3 for t in dts], "spread_pct": spread,
+           "frames": frames, "kernel_launches": launches,
+           "traverse_launches_per_frame": per_frame, "scope_ms": scopes,
+           "image_mean": float(img.mean()), "card": smi}
+    log(f"{label}: first frame {first_s:.3f} s; {med * 1e3:.2f} ms/frame "
+        f"(median of {frames}, spread {spread:.1f}%); traversal launches "
+        f"per frame {per_frame}, gather launches {launches['row_gather']}; "
+        "scopes (ms, profiler) " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                           sorted(scopes.items()))
+        + f"; image mean {row['image_mean']:.4f} [{smi}]")
+    if per_frame != {k: float(v) for k, v in want_per_frame.items()} \
+            or launches["row_gather"] < frames + 1:
+        raise SystemExit(f"chip_smoke: {label}: launches {launches}, want "
+                         f"{want_per_frame} per frame and the gather")
+    return row, launches
+
+
+def phase_raster_opaque(smi):
+    """R1: the opaque Sponza-class stand-in's raster frame at 1080p MSAA4x,
+    sun shadows by rays (one primary closest-hit launch and one sun any-hit
+    launch per frame, every subsample's rays in each)."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    w, h = FRAME_SIZE
+    t0 = time.time()
+    sess = RenderSession(AppSettings(current_scene=Scenes.Sponza), w, h,
+                         device=DEVICE)
+    sync()
+    init_s = time.time() - t0
+    row, launches = raster_run("R1 raster frame, opaque, rays", sess,
+                               RASTER_FRAMES, "rays", smi,
+                               {"W32_any": 1, "W32_closest": 1})
+    return {"width": w, "height": h, "msaa": str(sess.settings.msaa_mode),
+            "init_s": init_s, **row}, launches
+
+
+def phase_raster_alpha(smi):
+    """R2: SponzaAlpha-checker's raster frame at 1080p MSAA4x in the four
+    shadow modes, every ray alpha-tested on the W32 table."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.tools.alpha_cases import sponza_alpha_checker
+    w, h = FRAME_SIZE
+    scene, preset = sponza_alpha_checker()
+    t0 = time.time()
+    sess = RenderSession(AppSettings(current_scene=Scenes.Sponza), w, h,
+                         device=DEVICE, scene=scene, preset=preset)
+    sync()
+    init_s = time.time() - t0
+    runs, launches = {}, []
+    for mode in SHADOW_MODES:
+        # rays: the primary rays, then the sun's and the four spots' shadow
+        # rays (one launch); maps: the cascade depth rays, the spot depth
+        # rays and the primary rays, all closest hit
+        want = ({"W32_closest_alpha": 1, "W32_any_alpha": 2}
+                if mode == "rays" else {"W32_closest_alpha": 3})
+        runs[mode], l = raster_run(f"R2 raster frame, alpha, {mode}", sess,
+                                   RASTER_MODE_FRAMES, mode, smi, want)
+        launches.append(l)
+    return sess, {"width": w, "height": h, "init_s": init_s,
+                  "triangles": sess.scene.num_triangles,
+                  "spot_lights": scene.num_lights, "runs": runs}, launches
+
+
+@contextlib.contextmanager
+def raster_calls(record):
+    """Records every traversal call of the raster frames rendered inside:
+    appends (first_hit, bvh, [o, d, t_min, t_max, active] as full tensors,
+    alpha, the call's result) to `record`."""
+    from dxrpathtracer_tpu_torch.render import raster, shadows
+    originals = raster.closest_hit, raster.any_hit, shadows.closest_hit
+
+    def recording(fn, first_hit):
+        def call(bvh, o, d, tmin, tmax, active=None, alpha=None):
+            n, dev = o.shape[0], o.device
+            full = lambda x: torch.as_tensor(
+                x, dtype=torch.float32, device=dev).expand(n).contiguous()
+            rays = [o.contiguous(), d.contiguous(), full(tmin), full(tmax),
+                    torch.ones(n, dtype=torch.bool, device=dev)
+                    if active is None else active.contiguous()]
+            out = fn(bvh, *rays, alpha=alpha)
+            record.append((first_hit, bvh, rays, alpha, out))
+            return out
+        return call
+
+    raster.closest_hit = recording(originals[0], False)
+    raster.any_hit = recording(originals[1], True)
+    shadows.closest_hit = recording(originals[2], False)
+    try:
+        yield
+    finally:
+        raster.closest_hit, raster.any_hit, shadows.closest_hit = originals
+
+
+# R3's classes in the order a rays frame, then a pcf frame, make their calls
+RASTER_CALLS = ("primary_closest", "sun_any", "spot_any",
+                "cascade_depth_closest", "spot_depth_closest",
+                "primary_closest")
+
+
+def raster_classes(sess):
+    """R3's ray classes: the traversal calls of a `rays` and a `pcf` raster
+    frame of `sess`, as the frame makes them: {name: (bvh, first_hit, o, d,
+    t_min, t_max, active, alpha)}. The pcf frame's primary rays are the
+    rays frame's again."""
+    record = []
+    with raster_calls(record):
+        sess.render_raster_frame(shadow_mode="rays")
+        sess.render_raster_frame(shadow_mode="pcf")
+    if len(record) != len(RASTER_CALLS):
+        raise SystemExit(f"chip_smoke: {len(record)} traversal calls in a "
+                         f"rays and a pcf raster frame, want "
+                         f"{len(RASTER_CALLS)}")
+    out = {}
+    for name, (first_hit, bvh, rays, alpha, _) in zip(RASTER_CALLS, record):
+        name = f"raster_{name}_W{bvh.width}" + ("_alpha" if alpha else "")
+        out.setdefault(name, (bvh, first_hit, *rays, alpha))
+    return out
+
+
+def phase_same_raster_frame():
+    """R4: SponzaAlpha-checker's raster frame at SAME_FRAME_SIZE on the card
+    and on the CPU, in the rays and pcf modes: rel-RMSE <= 1e-4, and, as
+    phase C does, every traversal call's rays and results recorded on both
+    routes: no result may differ where the rays are bit-equal."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.tools.alpha_cases import sponza_alpha_checker
+    scene, preset = sponza_alpha_checker()
+    out = {}
+    for mode in ("rays", "pcf"):
+        imgs, calls = {}, {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.time()
+            sess = RenderSession(AppSettings(current_scene=Scenes.Sponza),
+                                 *SAME_FRAME_SIZE, device=dev, scene=scene,
+                                 preset=preset)
+            record = []
+            with raster_calls(record):
+                imgs[dev] = sess.render_raster_frame(
+                    shadow_mode=mode, shadow_map_size=SAME_RASTER_MAP).cpu()
+            calls[dev] = [{
+                "key": (fh, bvh.width, alpha is not None, rays[0].shape[0]),
+                "rays": [x.cpu() for x in rays],
+                "out": (res if fh else torch.stack(
+                    [res.t, res.tri_id.view(torch.float32), res.u,
+                     res.v])).cpu()}
+                for fh, bvh, rays, alpha, res in record]
+            log(f"same raster frame {SAME_FRAME_SIZE} {mode} on {dev}: "
+                f"{time.time() - t0:.2f} s")
+        got, ref = imgs[DEVICE], imgs["cpu"]
+        rel = rel_rmse(got, ref)
+        exact = float((got == ref).float().mean())
+        rows, _ = call_differences(calls[DEVICE], calls["cpu"], 1)
+        for row in rows:
+            log(f"  {mode} card vs cpu " + ", ".join(
+                f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in row.items()))
+        unexplained = sum(r["results_differ_rays_equal"] for r in rows)
+        log(f"same raster frame, {mode}: rel RMSE cuda (kernels) vs cpu "
+            f"(plain) {rel:.3e}, {exact:.4f} of values bit-equal; "
+            f"{unexplained} traversal lanes differ on bit-equal rays")
+        if not (rel <= 1e-4 and unexplained == 0
+                and bool(got.isfinite().all()) and float(ref.max()) > 0):
+            raise SystemExit(f"chip_smoke: kernel raster frame ({mode}) "
+                             f"differs from the plain one (rel RMSE "
+                             f"{rel:.3e}, {unexplained} lanes differ on "
+                             f"bit-equal rays)")
+        out[mode] = {"rel_rmse": rel, "bit_equal_fraction": exact,
+                     "shadow_map_size": SAME_RASTER_MAP, "calls": rows}
+    return out
+
+
+def run_command(args, timeout=600):
+    """`python -m dxrpathtracer_tpu_torch ARGS` on the card: its seconds."""
+    cmd = [sys.executable, "-m", "dxrpathtracer_tpu_torch", *args]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    secs = time.time() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: {' '.join(args[:2])} failed:\n"
+                         f"{proc.stderr[-3000:]}")
+    for line in proc.stderr.splitlines():
+        if line.startswith("#"):
+            log(f"  {line}")
+    return secs
+
+
+def png_shape(path):
+    """(height, width) of a PNG, from its IHDR chunk."""
+    import struct
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit(f"chip_smoke: {path} is not a PNG")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
+def phase_raster_commands(smi):
+    """R5: the raster-mode commands as a user runs them, on the card: a
+    BoxTest bake into an .npz bundle, the lightmap-lit render from it, a
+    pcf render with a torch.profiler trace, and uvviz."""
+    import numpy as np
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = lambda f: os.path.join(out_dir, f)
+    w, h = FRAME_SIZE
+    size = ["--width", str(w), "--height", str(h)]
+    secs = {}
+    secs["bake"] = run_command(
+        ["bake", "--current-scene", "BoxTest", "--resolution", "256",
+         "--atlas", "pair", "--samples", "4", "--output",
+         path("raster_lightmap.npz")])
+    # the HDR frames (25 MB each) stay out of the output directory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    hdr_path = lambda f: os.path.join(tmp, f)
+    secs["render_lightmap"] = run_command(
+        ["render", "--raster", "--lightmap", path("raster_lightmap.npz"),
+         "--current-scene", "BoxTest", *size, "--output",
+         path("raster_lightmap.png"), "--save-hdr",
+         hdr_path("raster_lightmap.npy")])
+    trace_dir = path("raster_trace")
+    secs["render_pcf_trace"] = run_command(
+        ["render", "--raster", "--shadow-mode", "pcf", "--profile-trace",
+         trace_dir, "--current-scene", "Sponza", *size, "--output",
+         path("raster_pcf.png"), "--save-hdr", hdr_path("raster_pcf.npy")])
+    secs["uvviz"] = run_command(
+        ["uvviz", "--current-scene", "BoxTest", "--resolution", "1024",
+         "--atlas", "pairs", "--output", path("uvviz.png")])
+    with np.load(path("raster_lightmap.npz")) as bundle:
+        lm = bundle["lightmap"]
+    checks = {"raster_lightmap.png": (h, w), "raster_pcf.png": (h, w),
+              "uvviz.png": (1024, 1024)}
+    for f, shape in checks.items():
+        if png_shape(path(f)) != shape:
+            raise SystemExit(f"chip_smoke: {f} is {png_shape(path(f))}, "
+                             f"want {shape}")
+    hdr = {f: np.load(hdr_path(f)) for f in ("raster_lightmap.npy",
+                                             "raster_pcf.npy")}
+    shutil.rmtree(tmp)
+    trace = os.path.join(trace_dir, "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    bad = [f for f, a in hdr.items()
+           if a.shape != (h, w, 3) or not np.isfinite(a).all()
+           or a.max() <= 0]
+    if bad or lm.shape != (256, 256, 3) or not np.isfinite(lm).all() \
+            or kernels == 0:
+        raise SystemExit(f"chip_smoke: raster command outputs wrong: {bad}, "
+                         f"lightmap {lm.shape}, {kernels} kernel events in "
+                         f"the trace")
+    row = {"command_s": secs, "trace_bytes": os.path.getsize(trace),
+           "trace_kernel_events": kernels,
+           "lightmap_mean": float(lm.mean()),
+           "lightmap_frame_mean": float(hdr["raster_lightmap.npy"].mean()),
+           "pcf_frame_mean": float(hdr["raster_pcf.npy"].mean()),
+           "card": smi}
+    log("R5 raster commands: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items())
+        + f"; PNGs of the right size, HDR frames finite; trace "
+        f"{row['trace_bytes']} B with {kernels} kernel events [{smi}]")
+    return row
+
 
 def main():
     smi = phase_device()
@@ -1190,10 +1560,24 @@ def main():
     gathers = phase_gather(frame_sess, d1_hits, baker)
     same_bake = phase_same_bake()
     shade = gathers["b_shading_row"]
+    del frame_sess, baker
+    torch.cuda.empty_cache()
+
+    raster_opaque, r1_launches = phase_raster_opaque(smi)
+    torch.cuda.empty_cache()
+    raster_sess, raster_alpha, r2_launches = phase_raster_alpha(smi)
+    raster_rows, _, raster_trav, _, _ = phase_kernel_vs_plain(
+        raster_sess, "R3 raster ray classes", raster_classes(raster_sess))
+    del raster_sess
+    torch.cuda.empty_cache()
+    same_raster = phase_same_raster_frame()
+    raster_commands = phase_raster_commands(smi)
 
     # each traversal instantiation: its launches on the main paths (the
-    # opaque frame, the alpha frames, the bake) and its ray classes' sums
-    runs = [frame_launches, *alpha_launches, bake_launches]
+    # opaque frame, the alpha frames, the bake, the raster frames) and its
+    # ray classes' sums
+    runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
+            *r2_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -1229,7 +1613,13 @@ def main():
                    "alpha_traversal_total": alpha_trav, "alpha_frame": alpha,
                    "same_alpha_frame": same_alpha, "render_command": render,
                    "traversal_instances": instances, "bake": bake,
-                   "gather": gathers, "same_bake": same_bake, **kernels}, f,
+                   "gather": gathers, "same_bake": same_bake,
+                   "raster_opaque": raster_opaque,
+                   "raster_alpha": raster_alpha,
+                   "raster_ray_classes": raster_rows,
+                   "raster_traversal_total": raster_trav,
+                   "same_raster_frame": same_raster,
+                   "raster_commands": raster_commands, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

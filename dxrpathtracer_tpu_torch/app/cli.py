@@ -1,15 +1,18 @@
-"""Command-line shell: `python -m dxrpathtracer_tpu_torch render|bake ...`.
+"""Command-line shell: `python -m dxrpathtracer_tpu_torch render|bake|uvviz ...`.
 
-The port of dxrpathtracer_tpu/app/cli.py's `render` and `bake` commands:
-every AppSettings field is a flag, as in the JAX package, plus each
-command's own. They run on the card (`--device cuda`, the default) and raise
-when there is none; pass `--device cpu` for the plain versions. Raster mode
-(`render --raster`, `--shadow-mode`, `--lightmap`, EnableRayTracing=false)
-is ROADMAP.md Queue 1 item 11 and `--profile-trace` item 13; they raise. The
-`uvviz`, `animate` and `interactive` commands are later slices of the port.
+The port of dxrpathtracer_tpu/app/cli.py's `render`, `bake` and `uvviz`
+commands: every AppSettings field is a flag, as in the JAX package, plus
+each command's own. `render` path-traces, or with `--raster` (or
+EnableRayTracing=false) renders one forward-shaded frame, lit from a
+`bake --output FILE.npz` bundle with `--lightmap`; `--profile-trace DIR`
+writes a torch.profiler trace of the render. They run on the card
+(`--device cuda`, the default) and raise when there is none; pass
+`--device cpu` for the plain versions. The `animate` and `interactive`
+commands are later slices of the port.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import enum
 import os
@@ -68,40 +71,60 @@ def _sync(device):
 
 def cmd_render(args):
     from ..render.film import write_image
+    from ..render.postfx import post_process
     from .session import RenderSession
 
     settings = _settings_from_args(args)
-    if (args.raster or args.shadow_mode is not None or args.lightmap
-            or not settings.enable_ray_tracing):
-        raise NotImplementedError(
-            "raster mode (--raster, --shadow-mode, --lightmap, "
-            "EnableRayTracing=false) is not ported yet (ROADMAP.md Queue 1 "
-            "item 11)")
-    if args.profile_trace:
-        raise NotImplementedError(
-            "--profile-trace is not ported yet (ROADMAP.md Queue 1 item 13)")
+    # --lightmap: the reference's EnableLightMapRender flow (Mesh.hlsl:155-162)
+    # from a `bake --output FILE.npz` bundle (lightmap + the atlas tri UVs it
+    # was baked against).
+    lightmap = lightmap_uvs = None
+    if args.lightmap:
+        with np.load(args.lightmap) as bundle:
+            lightmap, lightmap_uvs = bundle["lightmap"], bundle["tri_uv"]
+        settings = settings.replace(enable_light_map_render=True)
     t0 = time.time()
     sess = RenderSession(settings=settings, width=args.width,
                          height=args.height, device=args.device)
     print(f"# scene={sess.preset.name} tris={sess.scene.num_triangles} "
           f"bvh_rows={sess.bvh.num_rows} init={time.time() - t0:.1f}s "
           f"device={sess.device}", file=sys.stderr)
-    show_progress = args.progress and settings.show_progress_bar
-    total = settings.total_samples
-    t0 = time.time()
-    while sess.sample_idx < total:
-        sess.render_frame(force=True)
-        if show_progress:
-            _sync(sess.device)
-            _progress(sess.sample_idx - 1, total, t0, args.width, args.height,
-                      settings.max_path_length)
-    _sync(sess.device)
-    if show_progress:
-        sys.stderr.write("\n")
-    write_image(args.output, sess.display_image().cpu().numpy())
+    trace = contextlib.nullcontext()
+    if args.profile_trace:
+        from .profiler import device_trace
+        trace = device_trace(args.profile_trace)
+        print(f"# torch.profiler trace -> {args.profile_trace}/trace.json",
+              file=sys.stderr)
+    with trace:
+        # EnableRayTracing=false selects the forward raster path
+        # (DXRPathTracer::Render :1538-1559); --raster is shorthand for it.
+        if args.raster or not settings.enable_ray_tracing:
+            img = sess.render_raster_frame(shadow_mode=args.shadow_mode,
+                                           lightmap=lightmap,
+                                           lightmap_uvs=lightmap_uvs)
+            s = sess.settings
+            disp = post_process(img, s.exposure, s.bloom_exposure,
+                                s.bloom_magnitude, s.bloom_blur_sigma)
+            hdr = img
+        else:
+            show_progress = args.progress and settings.show_progress_bar
+            total = settings.total_samples
+            t0 = time.time()
+            while sess.sample_idx < total:
+                sess.render_frame(force=True)
+                if show_progress:
+                    _sync(sess.device)
+                    _progress(sess.sample_idx - 1, total, t0, args.width,
+                              args.height, settings.max_path_length)
+            if show_progress:
+                sys.stderr.write("\n")
+            disp, hdr = sess.display_image(), sess.accum
+        _sync(sess.device)
+    write_image(args.output, disp.cpu().numpy())
     if args.save_hdr:
-        # the raw HDR accumulation: .exr or .npy by extension
-        write_image(args.save_hdr, sess.accum.cpu().numpy())
+        # the raw HDR image (the accumulation, or the raster frame): .exr or
+        # .npy by extension
+        write_image(args.save_hdr, hdr.cpu().numpy())
     print(f"# wrote {args.output}", file=sys.stderr)
 
 
@@ -152,6 +175,25 @@ def cmd_bake(args):
     print(f"# wrote {args.output}", file=sys.stderr)
 
 
+def cmd_uvviz(args):
+    from ..bake.charts import build_charted_atlas
+    from ..bake.lightmap_uv import build_lightmap_atlas
+    from ..render.film import write_png
+    from ..render.uvviz import visualize_uvs
+    from ..scene.registry import load_scene
+
+    settings = _settings_from_args(args)
+    scene, _ = load_scene(settings.current_scene)
+    if args.atlas == "charts":
+        atlas = build_charted_atlas(np.asarray(scene.positions),
+                                    np.asarray(scene.tri_idx),
+                                    ref_resolution=args.resolution)
+    else:
+        atlas = build_lightmap_atlas(int(scene.num_triangles))
+    write_png(args.output, visualize_uvs(atlas, args.resolution))
+    print(f"# wrote {args.output}", file=sys.stderr)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="dxrpathtracer_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -162,18 +204,24 @@ def main(argv=None):
     p_render.add_argument("--height", type=int, default=1080)
     p_render.add_argument("--output", type=str, default="render.png")
     p_render.add_argument("--save-hdr", type=str, default=None,
-                          help="also save the raw HDR accumulation (.exr or "
-                               ".npy)")
+                          help="also save the raw HDR image, the accumulation "
+                               "or the raster frame (.exr or .npy)")
     p_render.add_argument("--raster", action="store_true",
-                          help="raster mode (not ported: raises)")
-    p_render.add_argument("--shadow-mode", type=str, default=None,
+                          help="forward raster-mode frame "
+                               "(EnableRayTracing=false)")
+    p_render.add_argument("--shadow-mode", type=str, default="rays",
                           choices=["rays", "pcf", "evsm", "msm"],
-                          help="raster sun shadows (not ported: raises)")
+                          help="raster sun shadows: exact rays, CSM depth "
+                               "maps + PCF, or EVSM/MSM moment maps "
+                               "(ShadowMapMode, ShadowHelper.h:25-108)")
     p_render.add_argument("--lightmap", type=str, default=None,
-                          help="raster lightmap render (not ported: raises)")
+                          help="raster mode: render lightmap-lit from a "
+                               "`bake --output FILE.npz` bundle (the "
+                               "reference's EnableLightMapRender, "
+                               "Mesh.hlsl:155-162)")
     p_render.add_argument("--profile-trace", type=str, default=None,
-                          help="device trace of the render (not ported: "
-                               "raises)")
+                          help="write a torch.profiler trace of the render "
+                               "to DIR/trace.json (Chrome trace format)")
     p_render.add_argument("--progress", action="store_true", default=True)
     p_render.add_argument("--device", type=str, default="cuda",
                           help="torch device; 'cpu' runs the plain versions")
@@ -200,6 +248,16 @@ def main(argv=None):
                         help="torch device; 'cpu' runs the plain versions")
     _add_settings_flags(p_bake)
     p_bake.set_defaults(fn=cmd_bake)
+
+    p_uv = sub.add_parser("uvviz", help="visualize the lightmap UV layout")
+    p_uv.add_argument("--resolution", type=int, default=1024)
+    p_uv.add_argument("--atlas", type=str, default="charts",
+                      choices=["charts", "pair", "pairs"],
+                      help="charted atlas, or the per-pair atlas ('pairs' "
+                           "as the JAX package spells it)")
+    p_uv.add_argument("--output", type=str, default="uvs.png")
+    _add_settings_flags(p_uv)
+    p_uv.set_defaults(fn=cmd_uvviz)
 
     args = parser.parse_args(argv)
     return args.fn(args)

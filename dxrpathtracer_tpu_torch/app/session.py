@@ -6,19 +6,29 @@ scene, the two BVH tables, the camera, the sky cache and the accumulation, and
 renders one progressive sample per `render_frame`. Any restart-relevant
 settings change or camera move resets the accumulation to sample 0 (the
 reference's watch list, :1416-1461); rendering stops at SqrtNumSamples^2
-samples unless benchmark mode is on (:2026-2028).
+samples unless benchmark mode is on (:2026-2028). `render_raster_frame`
+renders one forward-shaded frame instead (EnableRayTracing=false). Each pass
+runs in a scope of the session's `profiler`.
 """
 
 import numpy as np
 import torch
 
 from ..accel.bvh import build_bvh_for_scene
-from ..app.settings import AppSettings, Scenes
+from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings, Scenes
 from ..render.camera import FirstPersonCamera
-from ..render.integrator import FrameConstants, render_sample
+from ..render.clusters import build_cluster_masks, froxel_bounding_spheres
+from ..render.integrator import (FrameConstants, _make_alpha_test,
+                                 render_sample)
 from ..render.postfx import post_process
+from ..render.raster import forward_render
+from ..render.shadows import (convert_depth_maps, filter_moment_maps,
+                              prepare_cascades, prepare_spot_shadows,
+                              render_cascade_depth_maps,
+                              render_spot_depth_maps)
 from ..scene.registry import load_scene
 from ..sky.skycache import SkyCache
+from .profiler import Profiler
 
 
 class RenderSession:
@@ -49,6 +59,7 @@ class RenderSession:
                                "device='cpu' to run the plain versions)")
         self.width = width
         self.height = height
+        self.profiler = Profiler(self.device)
         self.settings = settings or AppSettings()
         if scene is None:
             scene, preset = load_scene(self.settings.current_scene)
@@ -65,9 +76,11 @@ class RenderSession:
         # W8 for depth-1 rays, with alpha-tested triangles flagged in its
         # leaf ids (no-op on opaque scenes); W32 (bf16 boxes) for every
         # deeper ray.
-        self.bvh = build_bvh_for_scene(scene, width=8,
-                                       flag_alpha=True).to(self.device)
-        self.bvh_ray = build_bvh_for_scene(scene, width=32).to(self.device)
+        with self.profiler.cpu_scope("BuildAccelStructure"):
+            self.bvh = build_bvh_for_scene(scene, width=8,
+                                           flag_alpha=True).to(self.device)
+            self.bvh_ray = build_bvh_for_scene(scene,
+                                               width=32).to(self.device)
         # The scene on the host (CPU tensors; np.asarray views them) that
         # the lightmap atlas builders read, as the JAX package's scene_host.
         self.scene_host = scene
@@ -155,7 +168,8 @@ class RenderSession:
         self.update()
         if self.done and not force:
             return False
-        self._step()
+        with self.profiler.gpu_scope("RenderRayTracing"):
+            self._step()
         return True
 
     def display_image(self) -> torch.Tensor:
@@ -173,3 +187,77 @@ class RenderSession:
         while self.sample_idx < n:
             self._step()
         return self.accum
+
+    def render_raster_frame(self, lightmap=None, lightmap_uvs=None,
+                            shadow_mode: str = "rays",
+                            shadow_map_size: int = 512):
+        """One forward-rendered frame (EnableRayTracing=false path,
+        DXRPathTracer::Render :1538-1559): cluster binning + ray-cast forward
+        shading + skybox + weighted resolve. Returns (H, W, 3) radiance on
+        the session's device. Raster rays walk the W32 table, alpha-tested
+        on alpha scenes.
+
+        shadow_mode: "rays" (exact BVH shadow rays), "pcf" (per-frame
+        cascade depth maps + 7x7 PCF — the reference's shipped sun-shadow
+        path, MeshRenderer.cpp:534-565 + Shadows.hlsl:318-360), or
+        "evsm"/"msm" (moment shadow maps: the same cascade depth maps
+        converted per SMConvert.hlsl, box-filtered, and sampled with the
+        Chebyshev / 4-moment Hamburger bound; spot lights use their depth
+        maps and PCF in all three). `lightmap` (S, S, 3) and `lightmap_uvs`
+        (T, 3, 2) (numpy or tensors) light the frame from a bake when
+        settings.enable_light_map_render is on."""
+        if shadow_mode not in ("rays", "pcf", "evsm", "msm"):
+            raise ValueError(f"unknown shadow mode {shadow_mode!r}")
+        self._update_sky()
+        dev = self.device
+        sun_shadow_pcf = spot_shadow_pcf = None
+        if shadow_mode != "rays":
+            alpha = _make_alpha_test(self.scene, self.settings)
+            sun_dir = np.asarray(self.settings.sun_direction, np.float32)
+            cascades = prepare_cascades(self.camera,
+                                        sun_dir / np.linalg.norm(sun_dir),
+                                        map_size=shadow_map_size)
+            with self.profiler.gpu_scope("RenderSunShadowMap"):
+                depth_maps = render_cascade_depth_maps(
+                    self.bvh_ray, cascades, shadow_map_size, alpha=alpha)
+            if shadow_mode in ("evsm", "msm"):
+                with self.profiler.gpu_scope("ConvertShadowMap"):
+                    moments = filter_moment_maps(
+                        convert_depth_maps(depth_maps, shadow_mode))
+                sun_shadow_pcf = (moments, cascades, shadow_mode)
+            else:
+                sun_shadow_pcf = (depth_maps, cascades)
+            if self.scene.num_lights > 0:
+                # per-spot perspective depth + the same PCF kernel
+                # (MeshRenderer.cpp:568-608)
+                spots = prepare_spot_shadows(self.scene_host.lights,
+                                             SPOT_SHADOW_NEAR_CLIP)
+                with self.profiler.gpu_scope("RenderSpotShadowMap"):
+                    spot_maps = render_spot_depth_maps(
+                        self.bvh_ray, spots, min(shadow_map_size * 2, 1024),
+                        alpha=alpha)
+                spot_shadow_pcf = (spot_maps, spots)
+        with self.profiler.cpu_scope("ClusterBounds"):
+            spheres, dims = froxel_bounding_spheres(self.width, self.height,
+                                                    self.camera)
+        with self.profiler.gpu_scope("RenderClusters"):
+            masks = build_cluster_masks(
+                self.scene.lights, spheres,
+                mode=self.settings.cluster_rasterization_mode)
+        frame = self.frame_constants(self.sample_idx)
+        sky_sh = (None if self.sky.sh9 is None
+                  else torch.from_numpy(self.sky.sh9).to(dev))
+        if lightmap is not None:
+            lightmap = torch.as_tensor(lightmap, dtype=torch.float32,
+                                       device=dev)
+            lightmap_uvs = torch.as_tensor(lightmap_uvs, dtype=torch.float32,
+                                           device=dev)
+        with self.profiler.gpu_scope("RenderForward"):
+            img = forward_render(
+                self.scene, self.bvh_ray, self.sky_cube, sky_sh,
+                self.settings, frame, self.width, self.height, masks, dims,
+                self.camera.forward(), self.camera.near_clip,
+                self.camera.far_clip, lightmap=lightmap,
+                lightmap_uvs=lightmap_uvs, sun_shadow_pcf=sun_shadow_pcf,
+                spot_shadow_pcf=spot_shadow_pcf)
+        return img

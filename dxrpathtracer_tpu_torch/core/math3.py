@@ -12,21 +12,85 @@ def _via_f64(fn, x):
     return fn(x.double()).to(x.dtype)
 
 
-# sqrt, sin and cos are evaluated in float64 and rounded once to float32: the
-# result is the correctly rounded float32 on every device, so the CPU and the
-# GPU give the same bits. (Torch's vectorized CPU sqrt is an ulp off in about
-# 1 % of lanes and its sin/cos differ from XLA's in about 5 %; XLA's sin/cos
-# are glibc's, correctly rounded in about 99 % of lanes.)
+# sqrt, arccos and exp are evaluated in float64 and rounded once to float32:
+# the result is the correctly rounded float32 on every device (but for a
+# float64 result within an ulp of a float32 rounding boundary), so the CPU and
+# the GPU give the same bits. (Torch's vectorized CPU sqrt is an ulp off in
+# about 1 % of lanes and its sin/cos differ from XLA's in about 5 %; XLA's
+# sin/cos are glibc's, correctly rounded in about 99 % of lanes.)
 def sqrt(x):
     return _via_f64(torch.sqrt, x)
 
 
+# sin and cos use no library transcendental: fdlibm's argument reduction
+# (x - k*pio2_1 - k*pio2_1t, k = round(x * 2/pi)) and its k_sin/k_cos
+# polynomials on [-pi/4, pi/4] (s_sin.c, k_sin.c, k_cos.c), in float64
+# adds and multiplies, each rounded as IEEE 754 says on every device and in
+# every thread, then rounded once to float32. The float64 result is within
+# about an ulp of sin(x), so the float32 is the correctly rounded one but
+# where sin(x) lies within 2^-29 relative of a float32 rounding boundary.
+# The reduction is exact for |x| <= 2^19 * pi/2 (k * pio2_1 has no rounding
+# there); the callers' angles lie within [-2pi, 2pi].
+_INV_PIO2 = 6.36619772367581382433e-01
+_PIO2_1 = 1.57079632673412561417e+00      # the first 33 bits of pi/2
+_PIO2_1T = 6.07710050650619224932e-11     # pi/2 - _PIO2_1
+_S = (-1.66666666666666324348e-01, 8.33333333332248946124e-03,
+      -1.98412698298579493134e-04, 2.75573137070700676789e-06,
+      -2.50507602534068634195e-08, 1.58969099521155010221e-10)
+_C = (4.16666666666666019037e-02, -1.38888888888741095749e-03,
+      2.48015872894767294178e-05, -2.75573143513906633035e-07,
+      2.08757232129817482790e-09, -1.13596475577881948265e-11)
+
+
+def _reduce(x):
+    """(r, k mod 4) with x = k*pi/2 + r, |r| <= ~pi/4, x float64."""
+    k = torch.round(x * _INV_PIO2)
+    r = (x - k * _PIO2_1) - k * _PIO2_1T
+    return r, torch.remainder(k, 4.0)
+
+
+def _k_sin(r):
+    z = r * r
+    p = _S[1] + z * (_S[2] + z * (_S[3] + z * (_S[4] + z * _S[5])))
+    return r + (z * r) * (_S[0] + z * p)
+
+
+def _k_cos(r):
+    z = r * r
+    p = z * (_C[0] + z * (_C[1] + z * (_C[2] + z * (_C[3] + z * (
+        _C[4] + z * _C[5])))))
+    hz = 0.5 * z
+    w = 1.0 - hz
+    return w + (((1.0 - w) - hz) + z * p)
+
+
+def _sincos(x, phase: int):
+    x64 = x.double()
+    r, q = _reduce(x64)
+    q = torch.remainder(q + phase, 4.0)
+    s, c = _k_sin(r), _k_cos(r)
+    # sin: q = 0 -> sin r, 1 -> cos r, 2 -> -sin r, 3 -> -cos r
+    y = torch.where(q == 0, s, torch.where(q == 1, c,
+                                           torch.where(q == 2, -s, -c)))
+    if phase == 0:
+        y = torch.where(x64 == 0.0, x64, y)  # sin(-0) = -0
+    return y.to(x.dtype)
+
+
 def sin(x):
-    return _via_f64(torch.sin, x)
+    return _sincos(x, 0)
 
 
 def cos(x):
-    return _via_f64(torch.cos, x)
+    return _sincos(x, 1)
+
+
+def arccos(x):
+    return _via_f64(torch.acos, x)
+
+
+def exp(x):
+    return _via_f64(torch.exp, x)
 
 
 def dot(a, b):

@@ -8,9 +8,12 @@ benchmark when the Sponza asset is absent, and the two alpha-tested scenes
 their caller passes (for the reference's foliage mask, a BC4 DDS:
 `scene.dds.load_dds(path).data`) and otherwise the JAX package's fallbacks:
 an opaque white texel (`sponza_alpha_standin`) or a 64x64 checker
-(`tiny_alpha_scene`). The port reads no asset from outside the repository.
-The FBX importer and the WhiteFurnace/SunTemple/Stronghold stand-ins are a
-later slice (ROADMAP.md, Queue 1 item 16).
+(`tiny_alpha_scene`). The port reads no asset from outside the repository,
+so the WhiteFurnace scene is the JAX package's sphere stand-in and SunTemple
+its procedural courtyard stand-in as the JAX package builds it when it finds
+no foliage DDS: opaque, four default materials. The FBX importer (the real
+Sponza, SunTemple, WhiteFurnace and Stronghold) is a later slice
+(ROADMAP.md, Queue 1 item 16).
 """
 
 import dataclasses
@@ -79,6 +82,85 @@ def _sponza_standin_meshes(target_tris: int = 260_000) -> list[MeshData]:
         meshes.append(make_sphere(float(rng.uniform(0.3, 1.2)), pos,
                                   n_lat=n_lat, n_lon=n_lon))
     return meshes
+
+
+def _white_furnace_standin_meshes() -> list[MeshData]:
+    return [make_sphere(1.0, (0.0, 0.0, 0.0), n_lat=32, n_lon=64)]
+
+
+def _suntemple_standin_meshes(target_tris: int = 240_000) -> list[MeshData]:
+    """Procedural temple courtyard for the SunTemple asset, laid out for the
+    reference camera preset (-1, 5.5, 12) yaw 3.0 / pitch 0.2
+    (DXRPathTracer.cpp:96-97): the camera stands at the courtyard entrance
+    looking down the processional axis (-z) at a stepped temple.
+    Deterministic (seeded)."""
+    rng = np.random.default_rng(4321)
+    meshes = []
+    # courtyard floor + low perimeter walls
+    meshes.append(make_box((44.0, 0.5, 50.0), (0.0, -0.25, -5.0)))
+    for sx in (-22.0, 22.0):
+        meshes.append(make_box((0.6, 6.0, 50.0), (sx, 3.0, -5.0)))
+    meshes.append(make_box((44.0, 6.0, 0.6), (0.0, 3.0, -30.0)))
+    # stepped temple platform at the end of the axis
+    for i, (w, d) in enumerate([(20.0, 12.0), (17.0, 10.0), (14.0, 8.0)]):
+        meshes.append(make_box((w, 1.0, d), (0.0, 0.5 + i, -20.0)))
+    # cella + roof slab
+    meshes.append(make_box((9.0, 6.0, 6.0), (0.0, 6.0, -20.5)))
+    meshes.append(make_box((11.0, 0.8, 7.5), (0.0, 9.4, -20.5)))
+    # portico columns across the temple front
+    for x in np.linspace(-6.0, 6.0, 5):
+        meshes.append(make_box((0.9, 6.0, 0.9), (float(x), 6.0, -16.8)))
+    # flanking colonnades along the processional axis, with capitals
+    for x in (-9.0, 9.0):
+        for z in np.linspace(8.0, -12.0, 9):
+            meshes.append(make_box((0.8, 5.0, 0.8), (x, 2.5, float(z))))
+            meshes.append(make_box((1.2, 0.4, 1.2), (x, 5.2, float(z))))
+    # obelisk pair framing the entrance
+    for x in (-4.0, 4.0):
+        meshes.append(make_box((0.9, 7.0, 0.9), (x, 3.5, 6.0)))
+        meshes.append(make_box((0.5, 1.2, 0.5), (x, 7.6, 6.0)))
+    # ornamental spheres (braziers/statuary) to reach the target tri count
+    base = sum(m.indices.size // 3 for m in meshes)
+    n_spheres = 56
+    tris_per = max((target_tris - base) // n_spheres, 8)
+    n_lat = max(int(np.sqrt(tris_per / 4)), 3)
+    n_lon = 2 * n_lat
+    for _ in range(n_spheres):
+        pos = (float(rng.uniform(-18, 18)), float(rng.uniform(0.4, 8.0)),
+               float(rng.uniform(-28, 8)))
+        meshes.append(make_sphere(float(rng.uniform(0.3, 1.0)), pos,
+                                  n_lat=n_lat, n_lon=n_lon))
+    return meshes
+
+
+def _suntemple_standin_scene() -> Scene:
+    """The SunTemple stand-in: the courtyard plus crossed tree cards along
+    the colonnades (materials 1-2) and the soul tree's two large cards over
+    the courtyard centre (material 3). The JAX package binds the asset's BC4
+    foliage opacity maps to materials 1-3 where it finds them; without them
+    (as here: the port reads no asset) all four materials are the defaults
+    and the scene is opaque."""
+    meshes = _suntemple_standin_meshes()
+    rng = np.random.RandomState(11)
+    for _ in range(96):
+        side = rng.choice([-1.0, 1.0])
+        pos = (float(side * rng.uniform(12.0, 19.0)),
+               float(rng.uniform(1.0, 5.0)),
+               float(rng.uniform(-26.0, 7.0)))
+        size = float(rng.uniform(1.5, 3.5))
+        yaw = float(rng.uniform(0.0, np.pi))
+        mat = int(rng.randint(1, 3))
+        for dy in (0.0, np.pi / 2.0):
+            q = quat_from_roll_pitch_yaw(np.pi / 2.0, yaw + dy, 0.0)
+            meshes.append(make_plane((size, size), pos, orientation=q,
+                                     material_idx=mat))
+    for yaw in (0.3, 0.3 + np.pi / 2.0):
+        q = quat_from_roll_pitch_yaw(np.pi / 2.0, yaw, 0.0)
+        meshes.append(make_plane((7.0, 7.0), (0.0, 7.0, -4.0),
+                                 orientation=q, material_idx=3))
+    builder = AtlasBuilder()
+    materials = default_material_table(4, builder)
+    return build_scene(meshes, materials=materials, atlas_builder=builder)
 
 
 def alpha_materials(builder: AtlasBuilder, name: str, mask):
@@ -156,7 +238,10 @@ def load_scene(scene_enum: Scenes) -> tuple[Scene, ScenePreset]:
         return build_scene(box_test_meshes()), preset
     if scene_enum == Scenes.Sponza:
         return build_scene(_sponza_standin_meshes()), preset
+    if scene_enum == Scenes.WhiteFurnace:
+        return build_scene(_white_furnace_standin_meshes()), preset
+    if scene_enum == Scenes.SunTemple:
+        return _suntemple_standin_scene(), preset
     raise NotImplementedError(
-        f"{preset.name}: the port loads only BoxTest and the Sponza-class "
-        "stand-in; the FBX importer and the other stand-ins are ROADMAP.md "
-        "Queue 1 item 16")
+        f"{preset.name}: the port has no stand-in for it; its FBX asset "
+        "needs the FBX importer, ROADMAP.md Queue 1 item 16")

@@ -13,7 +13,8 @@ EXR output, the `render` command) against dxrpathtracer_tpu.
     its PNG against the JAX package's `display_image` of the same render,
     every 8-bit value within 1 (the JAX frame is jitted, so XLA may fuse
     products that the port rounds one by one), and its EXR read back equal
-    to the session's accumulation; raster mode and a missing card raise.
+    to the session's accumulation; a missing card raises, in raster
+    mode too.
   - The bake writes `.exr`.
 """
 
@@ -141,17 +142,20 @@ def test_render_command_matches_jax_display_image(tmp_path):
 
 def test_render_command_raises_for_raster_and_without_card(tmp_path,
                                                            monkeypatch):
+    """Without a card the command raises rather than carry on on the CPU,
+    in path-tracing and in raster mode (an unknown shadow mode is refused
+    by the parser)."""
     out = str(tmp_path / "x.png")
-    for extra in (["--raster"], ["--shadow-mode", "pcf"],
-                  ["--enable-ray-tracing", "false"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cli.main(["render", "--current-scene", "BoxTest", "--width", "8",
-                      "--height", "8", "--output", out, "--device", "cpu",
-                      *extra])
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
+    with pytest.raises(SystemExit):
         cli.main(["render", "--current-scene", "BoxTest", "--width", "8",
-                  "--height", "8", "--output", out])
+                  "--height", "8", "--output", out, "--device", "cpu",
+                  "--raster", "--shadow-mode", "vsm"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--raster"], ["--shadow-mode", "pcf", "--raster"],
+                  ["--enable-ray-tracing", "false"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["render", "--current-scene", "BoxTest", "--width", "8",
+                      "--height", "8", "--output", out, *extra])
 
 
 def test_bake_writes_exr(tmp_path):
