@@ -9,15 +9,18 @@ alpha-tested foliage cards with a checker opacity mask and four spot lights,
 dxrpathtracer_tpu_torch/tools/alpha_cases.py; same size and path length),
 the `render` command, the GI lightmap bake (the stand-in, a 4096x4096
 lightmap on the pair atlas, default settings: path length 3,
-sqrt_num_samples 4), and raster mode (both scenes at 1080p MSAA4x, sun
-shadows by rays or cascaded depth maps, and the raster commands). Phases,
-each fatal on failure:
+sqrt_num_samples 4), raster mode (both scenes at 1080p MSAA4x, sun
+shadows by rays or cascaded depth maps, and the raster commands), scene
+import (SponzaAlpha-checker written as an FBX with DDS textures and
+imported through the scene cache) and dynamic geometry (the `animate`
+flow: the stand-in rotated and its W8 table rebuilt on the card every
+frame). Phases, each fatal on failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
   2. build: compiles the traversal kernel (csrc/traverse.cu), the row-gather
-     kernel (csrc/gather.cu) and the native SAH builder from the checkout, all
-     at once, with the seconds each took; for each (width, first_hit, alpha)
+     kernel (csrc/gather.cu) and the native SAH and morton builders from the
+     checkout, all at once, with the seconds each took; for each (width, first_hit, alpha)
      instantiation of the traversal kernel (eight), ptxas' registers, stack
      frame and spills and the warps one SM holds at once (the persistent
      grid); the opaque W32 instantiations must have no stack frame and no
@@ -36,6 +39,13 @@ each fatal on failure:
      rejections, an opaque and an alpha triangle at equal t, a card seen
      edge-on), W8 and W32, closest and any hit: again 0 lanes that differ in
      any bit;
+  V. the division check: raygen's steps for the 1080p camera rays (CMJ
+     jitter, pixel positions, NDC, the unprojected points, the rays) on the
+     card and on the CPU, with the NDC divided by a Python number (ATen's
+     CUDA divide multiplies by its reciprocal then) and by a tensor on the
+     device (core/math3.div, the port's rule): the lanes that differ at
+     each step; with the tensor divisor no step may differ, nor may
+     raygen's rays, card against CPU;
   4. frame main path: RenderSession on the card; init and first-frame
      seconds, median ms/frame over 10 frames, Mrays/s by bench.py's formula
      W*H*(1+(L-1)*2)/dt; the accumulation must be finite, the traversal
@@ -58,14 +68,14 @@ each fatal on failure:
      card and on the CPU, every traversal call's rays and results recorded.
      At the reference's max_any_hit_path_length 1: relative RMSE <= 1e-4.
      At 2 (depth-2 rays alpha-tested too): per call, the lanes whose rays
-     differ between the routes (torch's CUDA and CPU shading ops may round
-     a last bit differently) and by how much, the lanes whose results
-     differ, none of which may have bit-equal rays, and the lanes whose hit
-     differs; each pixel off by more than 1e-3 of the image's maximum, with
-     the calls in which its hit differs; then the CPU route once more,
-     given the card's rays for its depth-2 (alpha-tested W32) calls:
-     relative RMSE <= 1e-4 against the card; and the plain card vs CPU
-     reading, <= SAME_ALPHA_2_LIMIT;
+     differ between the routes (an op that rounds differently on the card
+     would show here; the NDC division did, phase V) and by how much, the
+     lanes whose results differ, none of which may have bit-equal rays,
+     and the lanes whose hit differs; each pixel off by more than 1e-3 of
+     the image's maximum, with the calls in which its hit differs; then the
+     CPU route once more, given the card's rays for its depth-2
+     (alpha-tested W32) calls: relative RMSE <= 1e-4 against the card; and
+     the plain card vs CPU reading, <= 1e-4;
   D. the `render` command: `python -m dxrpathtracer_tpu_torch render
      --current-scene Sponza --width 1920 --height 1080 --sqrt-num-samples 2`
      as a subprocess, writing chiprun_out/render.png and render.exr; the EXR
@@ -114,6 +124,27 @@ each fatal on failure:
      from it, `render --raster --shadow-mode pcf --profile-trace` on the
      stand-in (the trace must hold kernel events), `uvviz`; the PNGs'
      sizes and the HDR frames' finiteness are checked.
+  F. scene import: SponzaAlpha-checker written by
+     dxrpathtracer_tpu_torch/tools/fbx_cases.py as the Sponza preset's FBX
+     under a temporary asset root (246,852 triangles, 4 spot lights, the
+     cards' checker opacity and two albedo maps as DDS) and a temporary
+     DXRPT_SCENE_CACHE; parse, cache-write and cache-hit seconds, the hit
+     byte-equal to the parse; the triangles, lights and opacity map as
+     written; RenderSession(asset_root=...) at 1080p, path length 3: the
+     seven alpha classes kernel against plain (max_any_hit_path_length 3),
+     then 10 frames after a first at the reference's
+     max_any_hit_path_length 1, ms/frame; the same frame at 240x135 on the
+     card and the CPU, rel-RMSE <= 1e-4;
+  AN. dynamic geometry: the `animate` flow on the stand-in at 1080p with
+     the command's defaults (24 frames, 4 samples each): per frame, rotate,
+     device-build and render ms (CUDA events); the device table at two
+     frames bit-identical to the native morton build and to
+     build_table_numpy of the same rotated vertices on the host; the five
+     classes on the last frame's W8 table, kernel against plain; one
+     animated frame at 240x135 on the card and the CPU: tables bit-equal,
+     rel-RMSE <= 1e-4; `python -m dxrpathtracer_tpu_torch animate` at
+     480x270, 4 frames, into chiprun_out/animate/ (a GIF where PIL is
+     installed).
 
 BOUND: the least time the card could take, the larger of the bytes moved
 (each input read once, each output written once) over 3.35 TB/s (NVIDIA H100
@@ -139,8 +170,8 @@ without a step), so its time counts no inactive lane.
 
 The line before the last is {"kernels": [...]}: one entry per traversal
 instantiation and one for the gather kernel, whose `launches` count the
-main paths' runs (the opaque frame, the alpha frames, the bake and the
-raster frames of R1 and R2) and
+main paths' runs (the opaque frame, the alpha frames, the bake, the raster
+frames of R1 and R2, the imported frames of F and the animation of AN) and
 every one of which must be > 0; the last is {"ok": true, "device": {...}}.
 Full results also go to chiprun_out/chip_smoke.json. Exits non-zero, with
 no result line, when there is no CUDA device or any phase fails. Imports no
@@ -192,9 +223,6 @@ ROW_BYTES = 512    # one table record
 TAP_OPS = 34
 TAP_BYTES = 16
 PLAIN_CHUNK = 1 << 21  # rays per plain walk: its lockstep state stays small
-# Card vs CPU at max_any_hit_path_length 2, rel-RMSE limit: the H100's
-# reading is 8.803e-4, one pixel whose depth-2 path differs (PERF.md)
-SAME_ALPHA_2_LIMIT = 2e-3
 
 
 def log(msg):
@@ -241,7 +269,7 @@ def phase_device():
 
 
 def phase_build():
-    """Builds the three native libraries at once (one compiler each)."""
+    """Builds the four native libraries at once (one compiler each)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dxrpathtracer_tpu_torch.accel import bvh, gather, traverse
@@ -253,14 +281,16 @@ def phase_build():
 
     jobs = {"traverse_s": traverse.kernel_library,
             "gather_s": gather.kernel_library,
-            "sah_builder_s": bvh.sah_library}
+            "sah_builder_s": bvh.sah_library,
+            "lbvh_builder_s": bvh.lbvh_library}
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed, fn) for k, fn in jobs.items()}
         secs = {k: f.result() for k, f in futures.items()}
     log(f"build (in parallel): traverse.cu (nvcc sm_90a) "
         f"{secs['traverse_s']:.2f} s, gather.cu (nvcc sm_90a) "
         f"{secs['gather_s']:.2f} s, sah_builder.cpp (g++) "
-        f"{secs['sah_builder_s']:.2f} s")
+        f"{secs['sah_builder_s']:.2f} s, lbvh_builder.cpp (g++) "
+        f"{secs['lbvh_builder_s']:.2f} s")
     for line in gather.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "stack frame" in line:
             log(f"  ptxas gather: {line.strip()}")
@@ -964,7 +994,7 @@ def phase_same_alpha_frame():
                                     for k, v in reading[name].items()))
     unexplained = sum(r["results_differ_rays_equal"] for r in calls)
     if (unexplained or reading["cpu_given_card_depth2_rays"]["rel_rmse"]
-            > 1e-4 or reading["cpu"]["rel_rmse"] > SAME_ALPHA_2_LIMIT):
+            > 1e-4 or reading["cpu"]["rel_rmse"] > 1e-4):
         raise SystemExit(f"chip_smoke: at max_any_hit_path_length 2, "
                          f"{unexplained} traversal lanes differ on bit-equal "
                          f"rays, or the frames differ: {reading}")
@@ -1542,11 +1572,359 @@ def phase_raster_commands(smi):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Repair of the card's camera rays: division by a Python number
+
+
+def raygen_stages(settings, frame, w, h, dev, scalar_division):
+    """render/integrator.raygen's steps, each kept: the CMJ jitter, the pixel
+    positions, the NDC coordinates (dividing by a Python number as before
+    the repair, or by a tensor on the device as math3.div does), the
+    unprojected points and the camera rays."""
+    from dxrpathtracer_tpu_torch.core import cmj
+    from dxrpathtracer_tpu_torch.core.math3 import div, dot, sqrt
+    f32 = torch.float32
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=f32, device=dev),
+                            torch.arange(w, dtype=f32, device=dev),
+                            indexing="ij")
+    pixel_idx = torch.arange(h * w, dtype=torch.int64, device=dev)
+    n = int(settings.sqrt_num_samples)
+    jitter = cmj.sample_cmj_2d(frame.curr_sample_idx, n, n, pixel_idx)
+    px = xx.reshape(-1) + jitter[..., 0]
+    py = yy.reshape(-1) + jitter[..., 1]
+    if scalar_division:
+        ncd_x = px / (w * 0.5) - 1.0
+        ncd_y = -(py / (h * 0.5) - 1.0)
+    else:
+        ncd_x = div(px, w * 0.5) - 1.0
+        ncd_y = -(div(py, h * 0.5) - 1.0)
+    ivp = frame.inv_view_projection
+
+    def unproject(z):
+        out = (ncd_x[..., None] * ivp[0] + ncd_y[..., None] * ivp[1]
+               + z * ivp[2] + ivp[3])
+        return out, out[..., :3] / out[..., 3:4]
+
+    near_h, ray_start = unproject(0.0)
+    far_h, ray_end = unproject(1.0)
+    seg = ray_end - ray_start
+    ray_len = sqrt(torch.clamp_min(dot(seg, seg), 1e-30))
+    ray_dir = seg / ray_len[..., None]
+    return {"jitter": jitter, "px": px, "py": py, "ncd_x": ncd_x,
+            "ncd_y": ncd_y, "near_h": near_h, "far_h": far_h,
+            "ray_start": ray_start, "ray_len": ray_len, "ray_dir": ray_dir}
+
+
+def lanes_differ(a, b):
+    """Lanes (rows) of two float tensors whose bits differ."""
+    n = a.shape[0]
+    return int((a.view(torch.int32) != b.view(torch.int32))
+               .reshape(n, -1).any(1).sum())
+
+
+def phase_division(smi):
+    """Repair 2's check, on the frame's 1080p camera rays: raygen's steps
+    on the card and on the CPU, bit for bit, with the NDC division by a
+    Python number (as before the repair: ATen's CUDA divide multiplies by
+    the reciprocal instead) and by a tensor on the device (the repair); and
+    raygen itself, card against CPU."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.render.integrator import raygen
+    w, h = FRAME_SIZE
+    settings = AppSettings(current_scene=Scenes.BoxTest, benchmark_mode=True)
+    sess = RenderSession(settings, w, h, device="cpu")
+    frame = sess.frame_constants(0)
+    out = {}
+    for scalar in (True, False):
+        card = raygen_stages(settings, frame.to(DEVICE), w, h, DEVICE, scalar)
+        cpu = raygen_stages(settings, frame, w, h, "cpu", scalar)
+        row = {k: lanes_differ(card[k].cpu(), cpu[k]) for k in card}
+        out["python_number_divisor" if scalar else "device_divisor"] = row
+        log(f"division check, NDC divided by "
+            f"{'a Python number' if scalar else 'a tensor on the device'}: "
+            f"lanes of {w * h} that differ card vs cpu: " + ", ".join(
+                f"{k} {v}" for k, v in row.items()))
+    got = raygen(settings, frame.to(DEVICE), w, h, DEVICE)
+    ref = raygen(settings, frame, w, h, "cpu")
+    mirror = raygen_stages(settings, frame, w, h, "cpu", False)
+    out["raygen"] = {k: lanes_differ(g.cpu(), r) if g.is_floating_point()
+                     else int((g.cpu() != r).sum())
+                     for k, g, r in zip(("ray_start", "ray_dir", "ray_len",
+                                         "pixel_idx"), got, ref)}
+    log(f"division check: raygen card vs cpu, lanes that differ "
+        f"{out['raygen']} [{smi}]")
+    if not (torch.equal(mirror["ray_dir"], ref[1])
+            and not any(out["device_divisor"].values())
+            and not any(out["raygen"].values())):
+        raise SystemExit(f"chip_smoke: the camera rays differ between the "
+                         f"card and the CPU: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# F: scene import (an FBX written by tools/fbx_cases.py)
+
+FBX_FRAMES = 10   # frames after the first
+
+
+def phase_fbx(smi):
+    """SponzaAlpha-checker written as FBX + DDS (tools/fbx_cases.py), then
+    imported as a user does: load_scene(Sponza, asset_root=DIR) through the
+    scene cache, and RenderSession(..., asset_root=DIR) at 1080p."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.scene import cache, registry
+    from dxrpathtracer_tpu_torch.tools import fbx_cases
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fbx_")
+    root = os.path.join(tmp, "assets")
+    old_cache = os.environ.get("DXRPT_SCENE_CACHE")
+    os.environ["DXRPT_SCENE_CACHE"] = os.path.join(tmp, "scene_cache")
+    try:
+        t0 = time.time()
+        fbx = fbx_cases.sponza_alpha_fbx(root)
+        write_s = time.time() - t0
+        fbx_bytes = os.path.getsize(fbx)
+        preset = registry.PRESETS[Scenes.Sponza]
+        t0 = time.time()
+        fresh = registry._load_fbx_scene_full(preset, root, strict=True)
+        parse_s = time.time() - t0
+        t0 = time.time()
+        cache.store_cached_scene(str(fbx), preset, fresh)
+        store_s = time.time() - t0
+        t0 = time.time()
+        scene, _ = registry.load_scene(Scenes.Sponza, strict=True,
+                                       asset_root=root)
+        hit_s = time.time() - t0
+        same = all(torch.equal(getattr(scene, k).view(torch.uint8),
+                               getattr(fresh, k).view(torch.uint8))
+                   for k in ("positions", "normals", "uvs", "tangents",
+                             "bitangents", "tri_idx", "tri_material",
+                             "tri_shade", "texels", "texture_meta",
+                             "packed_meta"))
+        same &= torch.equal(scene.has_opacity, fresh.has_opacity) and all(
+            torch.equal(getattr(scene.lights, k), getattr(fresh.lights, k))
+            for k in ("position", "direction", "intensity"))
+        cards = int(scene.has_opacity.sum())
+        opacity_texels = int(scene.texture_meta[-1, 1] *
+                             scene.texture_meta[-1, 2])
+        log(f"F scene import: wrote {fbx_bytes} B of FBX in "
+            f"{write_s:.2f} s; parse {parse_s:.2f} s, cache write "
+            f"{store_s:.2f} s, cache hit {hit_s:.2f} s (byte-equal to the "
+            f"parse: {same}); {scene.num_triangles} triangles, "
+            f"{scene.num_lights} spot lights, {cards} opacity-mapped "
+            f"materials, opacity map {opacity_texels} texels")
+        if not (same and scene.num_triangles == 246_852
+                and scene.num_lights == 4 and cards == 384
+                and opacity_texels == 64 * 64):
+            raise SystemExit("chip_smoke: the imported FBX scene is not the "
+                             "one written")
+
+        (w, h), frames = FRAME_SIZE, FBX_FRAMES
+        settings = AppSettings(current_scene=Scenes.Sponza,
+                               benchmark_mode=True, max_path_length=3,
+                               max_any_hit_path_length=3)
+        t0 = time.time()
+        sess = RenderSession(settings, w, h, device=DEVICE, asset_root=root)
+        sync()
+        init_s = time.time() - t0
+        checks = phase_kernel_vs_plain(sess, "F alpha traversal classes")
+        sess.settings = sess.settings.replace(max_any_hit_path_length=1)
+        first_s, dts, launches = timed_frames(sess, frames)
+        accum = sess.accum
+        if not bool(accum.isfinite().all()) or launches["traverse"] != \
+                7 * (frames + 1):
+            raise SystemExit(f"chip_smoke: F frame not finite or launches "
+                             f"{launches}")
+        med = statistics.median(dts)
+        spread = (max(dts) - min(dts)) / med * 100.0
+        log(f"F frame (imported, 1080p, path length 3): init {init_s:.2f} s "
+            f"(cache hit); first frame {first_s:.3f} s; {med * 1e3:.2f} "
+            f"ms/frame (median of {frames}, spread {spread:.1f}%); launches "
+            f"{launches['traverse_by_instance']} [{smi}]")
+
+        imgs = {}
+        for dev in (DEVICE, "cpu"):
+            s = RenderSession(AppSettings(current_scene=Scenes.Sponza,
+                                          benchmark_mode=True,
+                                          max_path_length=3),
+                              *SAME_FRAME_SIZE, device=dev, asset_root=root)
+            s.render_frame()
+            imgs[dev] = s.accum.cpu()
+        rel = rel_rmse(imgs[DEVICE], imgs["cpu"])
+        exact = float((imgs[DEVICE] == imgs["cpu"]).float().mean())
+        log(f"F same frame {SAME_FRAME_SIZE}: rel RMSE cuda vs cpu "
+            f"{rel:.3e}, {exact:.4f} of values bit-equal")
+        if rel > 1e-4:
+            raise SystemExit(f"chip_smoke: F frame card vs cpu {rel:.3e}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("DXRPT_SCENE_CACHE", None)
+        else:
+            os.environ["DXRPT_SCENE_CACHE"] = old_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"fbx_bytes": fbx_bytes, "write_s": write_s, "parse_s": parse_s, "cache_write_s": store_s,
+           "cache_hit_s": hit_s, "triangles": scene.num_triangles,
+           "spot_lights": scene.num_lights, "session_init_s": init_s,
+           "first_frame_s": first_s, "ms_per_frame": [t * 1e3 for t in dts],
+           "ms_per_frame_median": med * 1e3, "spread_pct": spread,
+           "kernel_launches": launches, "same_frame_rel_rmse": rel,
+           "same_frame_bit_equal_fraction": exact, "card": smi}
+    return out, checks, launches
+
+
+# ---------------------------------------------------------------------------
+# AN: dynamic geometry (the `animate` command's flow)
+
+ANIM_FRAMES, ANIM_SPP = 24, 4   # the animate command's defaults
+ANIM_CHECK_FRAMES = (0, 7)      # frames whose table is held to the host's
+ANIM_SAME_THETA = 1.3           # the frame rendered on the card and the CPU
+
+
+def phase_animate(smi):
+    """The `animate` flow on the Sponza-class stand-in at 1080p, as the
+    command runs it: per frame the scene rotated on the card, its W8 table
+    built there, ANIM_SPP samples with every traversal class on that table;
+    rotate, build and render ms by CUDA events. At ANIM_CHECK_FRAMES the
+    table against the native morton build and build_table_numpy of the same
+    vertices on the host, bit for bit; then the kernel against the plain
+    walk on the last table's five classes; one frame at SAME_FRAME_SIZE on
+    the card and on the CPU; and the command as a subprocess."""
+    import importlib.util
+
+    import numpy as np
+
+    from dxrpathtracer_tpu_torch.accel import bvh as host_bvh
+    from dxrpathtracer_tpu_torch.accel.device_build import (build_bvh_device,
+                                                            lbvh_plan)
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.scene.animate import (rotate_scene_y,
+                                                       triangle_vertices,
+                                                       turntable_center,
+                                                       turntable_geometry)
+    w, h = FRAME_SIZE
+    settings = AppSettings(current_scene=Scenes.Sponza)
+    t0 = time.time()
+    sess = RenderSession(settings, w, h, device=DEVICE)
+    init_s = time.time() - t0
+    t0 = time.time()
+    plan = lbvh_plan(sess.scene.num_triangles)
+    plan_s = time.time() - t0
+    center = turntable_center(sess.scene_host.positions.numpy())
+    base = sess.scene
+    steps = {"rotate_ms": [], "build_ms": [], "render_ms": [],
+             "frame_ms": []}
+    tables = {}
+    reset_launches()
+    for f in range(ANIM_FRAMES):
+        theta = np.float32(2.0 * np.pi * f / ANIM_FRAMES)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        sync()
+        t0 = time.time()
+        ev[0].record()
+        scene = rotate_scene_y(base, theta, center)
+        ev[1].record()
+        verts = triangle_vertices(scene)
+        bvh = build_bvh_device(*verts, plan)
+        ev[2].record()
+        sess.use_geometry(scene, bvh)
+        sess.render_to_completion(ANIM_SPP)
+        sess.display_image()
+        ev[3].record()
+        sync()
+        steps["frame_ms"].append((time.time() - t0) * 1e3)
+        for k, (a, b) in (("rotate_ms", (0, 1)), ("build_ms", (1, 2)),
+                          ("render_ms", (2, 3))):
+            steps[k].append(ev[a].elapsed_time(ev[b]))
+        if f in ANIM_CHECK_FRAMES:
+            tables[f] = (bvh.table.cpu(), [v.cpu().numpy() for v in verts])
+    launches = read_launches()
+    if not bool(sess.accum.isfinite().all()) or launches["traverse"] != \
+            5 * ANIM_FRAMES * ANIM_SPP:
+        raise SystemExit(f"chip_smoke: animate frames not finite or "
+                         f"launches {launches}")
+    checks = {}
+    for f, (table, verts) in tables.items():
+        t0 = time.time()
+        native = host_bvh.build_bvh(*verts, mode="morton").table
+        native_s = time.time() - t0
+        t0 = time.time()
+        host = torch.from_numpy(host_bvh.build_table_numpy(*verts)[0])
+        numpy_s = time.time() - t0
+        bits = lambda t: t.view(torch.int32)
+        checks[f] = {"words_differ_native": int((bits(table)
+                                                 != bits(native)).sum()),
+                     "words_differ_numpy": int((bits(table)
+                                                != bits(host)).sum()),
+                     "native_build_s": native_s, "numpy_build_s": numpy_s}
+    med = {k: statistics.median(v) for k, v in steps.items()}
+    log(f"AN animate flow (Sponza-class, {w}x{h}, {ANIM_FRAMES} frames x "
+        f"{ANIM_SPP} spp): init {init_s:.2f} s, plan {plan_s:.3f} s "
+        f"({plan.num_rows} rows); medians: rotate {med['rotate_ms']:.3f} ms, "
+        f"device build {med['build_ms']:.3f} ms, render "
+        f"{med['render_ms']:.2f} ms, frame {med['frame_ms']:.2f} ms (host "
+        f"clock); build ms {min(steps['build_ms']):.3f}-"
+        f"{max(steps['build_ms']):.3f}; launches "
+        f"{launches['traverse_by_instance']}; tables against the host's "
+        f"{checks} [{smi}]")
+    if any(c["words_differ_native"] or c["words_differ_numpy"]
+           for c in checks.values()):
+        raise SystemExit(f"chip_smoke: the device table differs from the "
+                         f"host builds: {checks}")
+    classes = phase_kernel_vs_plain(sess, "AN W8 classes on a device table")
+    del sess, base, scene, bvh
+    torch.cuda.empty_cache()
+
+    # one frame on the card and on the CPU: the same table, bit for bit
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        s = RenderSession(settings, *SAME_FRAME_SIZE, device=dev)
+        sc, b = turntable_geometry(
+            s.scene, np.float32(ANIM_SAME_THETA),
+            turntable_center(s.scene_host.positions.numpy()),
+            lbvh_plan(s.scene.num_triangles))
+        s.use_geometry(sc, b)
+        outs[dev] = (b.table.cpu(), s.render_to_completion(1).cpu())
+    tables_equal = torch.equal(outs[DEVICE][0].view(torch.int32),
+                               outs["cpu"][0].view(torch.int32))
+    rel = rel_rmse(outs[DEVICE][1], outs["cpu"][1])
+    log(f"AN same frame {SAME_FRAME_SIZE}, theta {ANIM_SAME_THETA}: tables "
+        f"bit-equal {tables_equal}; rel RMSE cuda vs cpu {rel:.3e}")
+    if not tables_equal or rel > 1e-4:
+        raise SystemExit(f"chip_smoke: animated frame card vs cpu: tables "
+                         f"equal {tables_equal}, rel RMSE {rel:.3e}")
+
+    out_dir = os.path.join(ROOT, "chiprun_out", "animate")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pil = importlib.util.find_spec("PIL") is not None
+    args = ["animate", "--current-scene", "Sponza", "--width", "480",
+            "--height", "270", "--frames", "4", "--output", out_dir]
+    if pil:
+        args += ["--gif", os.path.join(out_dir, "turntable.gif")]
+    command_s = run_command(args)
+    for f in range(4):
+        shape = png_shape(os.path.join(out_dir, f"frame_{f:03d}.png"))
+        if shape != (270, 480):
+            raise SystemExit(f"chip_smoke: animate frame {f} is {shape}")
+    log(f"AN animate command: {command_s:.1f} s; 4 PNGs of 480x270"
+        + (", and a GIF" if pil else "; PIL is not installed: no --gif"))
+    out = {"width": w, "height": h, "frames": ANIM_FRAMES, "spp": ANIM_SPP,
+           "triangles": plan.num_tris, "rows": plan.num_rows,
+           "session_init_s": init_s, "plan_s": plan_s, "steps_ms": steps,
+           "median_ms": med, "kernel_launches": launches,
+           "table_checks": checks, "same_frame_tables_equal": tables_equal,
+           "same_frame_rel_rmse": rel, "command_s": command_s,
+           "pil_installed": pil, "card": smi}
+    return out, classes, launches
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
     build = phase_build()
     adversarial = phase_adversarial()
+    division = phase_division(smi)
     frame_sess, main_path, (classes, _, trav, d1_hits, opaque_inst), \
         frame_launches = phase_main_path(smi)
     same = phase_same_frame()
@@ -1572,12 +1950,18 @@ def main():
     torch.cuda.empty_cache()
     same_raster = phase_same_raster_frame()
     raster_commands = phase_raster_commands(smi)
+    torch.cuda.empty_cache()
+    fbx_import, (fbx_classes, _, fbx_trav, _, fbx_inst), fbx_launches = \
+        phase_fbx(smi)
+    torch.cuda.empty_cache()
+    anim, (anim_classes, _, anim_trav, _, anim_inst), anim_launches = \
+        phase_animate(smi)
 
     # each traversal instantiation: its launches on the main paths (the
-    # opaque frame, the alpha frames, the bake, the raster frames) and its
-    # ray classes' sums
+    # opaque frame, the alpha frames, the bake, the raster frames, the
+    # imported frame, the animation) and its ray classes' sums
     runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
-            *r2_launches]
+            *r2_launches, fbx_launches, anim_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -1586,10 +1970,13 @@ def main():
         if launches == 0 or inst is None:
             raise SystemExit(f"chip_smoke: traversal {name}: {launches} "
                              f"launches on the main paths, classes {inst}")
+        err = max(i[key]["max_abs_err"] for i in (opaque_inst, alpha_inst,
+                                                  fbx_inst, anim_inst)
+                  if key in i)
         entries.append({
             "name": f"traverse_{name}", "route": "cuda",
             "source": TRAVERSE_SOURCE, "replaces": TRAVERSE_REPLACES,
-            "launches": launches, "max_abs_err": inst["max_abs_err"],
+            "launches": launches, "max_abs_err": err,
             "ms": inst["ms"], "plain_ms": inst["plain_ms"],
             "bound_ms": inst["bound_ms"], "bound_by": inst["bound_by"],
             "library_ms": None})
@@ -1619,7 +2006,12 @@ def main():
                    "raster_ray_classes": raster_rows,
                    "raster_traversal_total": raster_trav,
                    "same_raster_frame": same_raster,
-                   "raster_commands": raster_commands, **kernels}, f,
+                   "raster_commands": raster_commands,
+                   "division_check": division, "fbx_import": fbx_import,
+                   "fbx_ray_classes": fbx_classes,
+                   "fbx_traversal_total": fbx_trav, "animate": anim,
+                   "animate_ray_classes": anim_classes,
+                   "animate_traversal_total": anim_trav, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

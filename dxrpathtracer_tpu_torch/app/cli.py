@@ -1,14 +1,17 @@
-"""Command-line shell: `python -m dxrpathtracer_tpu_torch render|bake|uvviz ...`.
+"""Command-line shell: `python -m dxrpathtracer_tpu_torch render|animate|bake|uvviz ...`.
 
-The port of dxrpathtracer_tpu/app/cli.py's `render`, `bake` and `uvviz`
-commands: every AppSettings field is a flag, as in the JAX package, plus
-each command's own. `render` path-traces, or with `--raster` (or
+The port of dxrpathtracer_tpu/app/cli.py's `render`, `animate`, `bake` and
+`uvviz` commands: every AppSettings field is a flag, as in the JAX package,
+plus each command's own. `render` path-traces, or with `--raster` (or
 EnableRayTracing=false) renders one forward-shaded frame, lit from a
 `bake --output FILE.npz` bundle with `--lightmap`; `--profile-trace DIR`
-writes a torch.profiler trace of the render. They run on the card
-(`--device cuda`, the default) and raise when there is none; pass
-`--device cpu` for the plain versions. The `animate` and `interactive`
-commands are later slices of the port.
+writes a torch.profiler trace of the render. `animate` renders a turntable
+of the scene with its W8 table rebuilt on the device every frame.
+`--asset-root DIR` imports the scene's FBX from DIR (the reference's
+Content/ layout) where render, animate and bake load a scene; without it
+the scene is its procedural stand-in. They run on the card (`--device
+cuda`, the default) and raise when there is none; pass `--device cpu` for
+the plain versions. The `interactive` command is a later slice of the port.
 """
 
 import argparse
@@ -39,6 +42,14 @@ def _add_settings_flags(parser: argparse.ArgumentParser):
             parser.add_argument(name, type=type(default), default=None)
         elif isinstance(default, tuple):
             parser.add_argument(name, type=float, nargs=len(default), default=None)
+
+
+def _add_asset_root(parser: argparse.ArgumentParser):
+    parser.add_argument("--asset-root", type=str, default=None,
+                        help="import the scene's FBX, textures and spot "
+                             "lights from this directory (laid out as the "
+                             "reference's Content/); default: the "
+                             "procedural stand-in")
 
 
 def _settings_from_args(args) -> AppSettings:
@@ -85,7 +96,8 @@ def cmd_render(args):
         settings = settings.replace(enable_light_map_render=True)
     t0 = time.time()
     sess = RenderSession(settings=settings, width=args.width,
-                         height=args.height, device=args.device)
+                         height=args.height, device=args.device,
+                         asset_root=args.asset_root)
     print(f"# scene={sess.preset.name} tris={sess.scene.num_triangles} "
           f"bvh_rows={sess.bvh.num_rows} init={time.time() - t0:.1f}s "
           f"device={sess.device}", file=sys.stderr)
@@ -128,6 +140,59 @@ def cmd_render(args):
     print(f"# wrote {args.output}", file=sys.stderr)
 
 
+def cmd_animate(args):
+    """Turntable animation with the W8 table rebuilt on the device every
+    frame (the JAX package's `animate`): each frame rotates the whole scene
+    on the device (scene/animate.py), builds its morton table there
+    (accel/device_build.py, one plan for the triangle count) and renders
+    `--spp` samples with every traversal class on that table; geometry
+    never goes back to the host. Writes OUTPUT/frame_NNN.png, and with
+    `--gif` a GIF of them (PIL)."""
+    from ..accel.device_build import lbvh_plan
+    from ..render.film import write_image
+    from ..scene.animate import turntable_center, turntable_geometry
+    from .session import RenderSession
+
+    if args.gif:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise SystemExit("animate --gif writes the GIF with PIL "
+                             "(Pillow), which is not installed; the PNG "
+                             "frames need no PIL") from e
+    settings = _settings_from_args(args)
+    t0 = time.time()
+    sess = RenderSession(settings=settings, width=args.width,
+                         height=args.height, device=args.device,
+                         asset_root=args.asset_root)
+    plan = lbvh_plan(sess.scene.num_triangles)
+    center = turntable_center(sess.scene_host.positions.numpy())
+    base = sess.scene
+    os.makedirs(args.output, exist_ok=True)
+    print(f"# scene={sess.preset.name} tris={sess.scene.num_triangles} "
+          f"rows={plan.num_rows} frames={args.frames} spp={args.spp} "
+          f"init={time.time() - t0:.1f}s device={sess.device}",
+          file=sys.stderr)
+    paths = []
+    for f in range(args.frames):
+        t1 = time.time()
+        scene, bvh = turntable_geometry(
+            base, np.float32(2.0 * np.pi * f / args.frames), center, plan)
+        sess.use_geometry(scene, bvh)
+        sess.render_to_completion(args.spp)
+        disp = sess.display_image().cpu().numpy()
+        path = os.path.join(args.output, f"frame_{f:03d}.png")
+        write_image(path, disp)
+        paths.append(path)
+        print(f"# frame {f + 1}/{args.frames} "
+              f"{(time.time() - t1) * 1e3:.0f} ms -> {path}", file=sys.stderr)
+    if args.gif:
+        ims = [Image.open(p) for p in paths]
+        ims[0].save(args.gif, save_all=True, append_images=ims[1:],
+                    duration=max(20, int(1000 / args.fps)), loop=0)
+        print(f"# wrote {args.gif}", file=sys.stderr)
+
+
 def cmd_bake(args):
     from ..bake.baker import Baker
     from ..core.constants import FP16Scale
@@ -137,7 +202,7 @@ def cmd_bake(args):
 
     settings = _settings_from_args(args)
     sess = RenderSession(settings=settings, width=8, height=8,
-                         device=args.device)
+                         device=args.device, asset_root=args.asset_root)
     baker = Baker(sess, resolution=args.resolution, atlas_mode=args.atlas)
     ckpt = args.checkpoint
     if ckpt and os.path.exists(ckpt):
@@ -225,8 +290,29 @@ def main(argv=None):
     p_render.add_argument("--progress", action="store_true", default=True)
     p_render.add_argument("--device", type=str, default="cuda",
                           help="torch device; 'cpu' runs the plain versions")
+    _add_asset_root(p_render)
     _add_settings_flags(p_render)
     p_render.set_defaults(fn=cmd_render)
+
+    p_anim = sub.add_parser("animate",
+                            help="turntable animation with the BVH rebuilt "
+                                 "on the device every frame (dynamic "
+                                 "geometry)")
+    p_anim.add_argument("--width", type=int, default=640)
+    p_anim.add_argument("--height", type=int, default=360)
+    p_anim.add_argument("--frames", type=int, default=24)
+    p_anim.add_argument("--spp", type=int, default=4,
+                        help="samples per animation frame")
+    p_anim.add_argument("--output", type=str, default="anim",
+                        help="output directory for frame_NNN.png")
+    p_anim.add_argument("--gif", type=str, default=None,
+                        help="also assemble the frames into a GIF (PIL)")
+    p_anim.add_argument("--fps", type=float, default=12.0)
+    p_anim.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the plain versions")
+    _add_asset_root(p_anim)
+    _add_settings_flags(p_anim)
+    p_anim.set_defaults(fn=cmd_animate)
 
     p_bake = sub.add_parser("bake", help="bake a GI lightmap")
     p_bake.add_argument("--resolution", type=int, default=1024)
@@ -246,6 +332,7 @@ def main(argv=None):
     p_bake.add_argument("--progress", action="store_true", default=True)
     p_bake.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain versions")
+    _add_asset_root(p_bake)
     _add_settings_flags(p_bake)
     p_bake.set_defaults(fn=cmd_bake)
 

@@ -48,11 +48,13 @@ class RenderSession:
     `preset`, when given, sets the camera and sun and forces white-furnace
     mode on the WhiteFurnace scene, as a scene switch does (without one,
     the camera keeps its default pose and the settings stay as given).
+    `asset_root` is the directory the settings' scene is imported from
+    (registry.load_scene); without one the scene is its stand-in.
     """
 
     def __init__(self, settings: AppSettings | None = None,
                  width: int = 1920, height: int = 1080, device="cuda",
-                 scene=None, preset=None):
+                 scene=None, preset=None, asset_root=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("RenderSession: no CUDA device (pass "
@@ -62,7 +64,8 @@ class RenderSession:
         self.profiler = Profiler(self.device)
         self.settings = settings or AppSettings()
         if scene is None:
-            scene, preset = load_scene(self.settings.current_scene)
+            scene, preset = load_scene(self.settings.current_scene,
+                                       asset_root=asset_root)
         if preset is not None:
             # Scene switch forces white-furnace mode (DXRPathTracer.cpp:
             # 934-935)
@@ -143,6 +146,14 @@ class RenderSession:
         self._accum = torch.zeros((self.height, self.width, 3),
                                   dtype=torch.float32, device=self.device)
         self.sample_idx = 0
+
+    def use_geometry(self, scene, bvh):
+        """Render from now on `scene` (on the session's device) with every
+        traversal class on `bvh`, a W8 table of that geometry built on the
+        device (the `animate` command's moving geometry, as the JAX package
+        routes it); resets the accumulation."""
+        self.scene, self.bvh, self.bvh_ray = scene, bvh, bvh
+        self.reset_accumulation()
 
     @property
     def accum(self) -> torch.Tensor:

@@ -10,6 +10,8 @@ overflows. The outputs equal the JAX package's bit for bit.
 
 import torch
 
+from .math3 import div
+
 _M32 = 0xFFFFFFFF
 
 
@@ -115,6 +117,6 @@ def sample_cmj_2d(sample_idx, num_samples_x: int, num_samples_y: int, pattern):
     jx = cmj_rand_float(sample_idx, _mul(pattern, 0x967A889B))
     jy = cmj_rand_float(sample_idx, _mul(pattern, 0x368CC8B7))
     f32 = lambda v: v.to(torch.float32)
-    u = (f32(sx) + (f32(sy) + jx) / num_samples_y) / num_samples_x
-    v = (f32(sample_idx) + jy) / n
+    u = div(f32(sx) + div(f32(sy) + jx, num_samples_y), num_samples_x)
+    v = div(f32(sample_idx) + jy, n)
     return torch.stack([u, v], dim=-1)

@@ -93,6 +93,17 @@ def exp(x):
     return _via_f64(torch.exp, x)
 
 
+# Division by a number: ATen's CUDA true-divide turns a divisor that is a
+# Python number (or a CPU scalar tensor) into a multiply by its reciprocal,
+# which rounds twice, while its CPU kernel divides; with the divisor on the
+# tensor's own device both divide, and the card gives the CPU's bits. So a
+# device path never writes `tensor / number` where the number may not be a
+# power of two: it writes div(tensor, number).
+def div(x, d):
+    """x / d, d a Python number, divided on x's device."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def dot(a, b):
     """Sum of the three products, left to right (as XLA reduces them; a
     torch reduction may take another order on another device)."""

@@ -50,7 +50,8 @@ from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings
 from ..core import brdf as brdf_lib
 from ..core import cmj
 from ..core.constants import FP16Max, FP32Max
-from ..core.math3 import dot, normalize, reflect, saturate, smoothstep, sqrt
+from ..core.math3 import (div, dot, normalize, reflect, saturate, smoothstep,
+                          sqrt)
 from ..core.sampling import sample_cosine_hemisphere, sample_ggx_visible_normal
 from ..scene.textures import bilinear_from_meta
 from ..scene.types import (PACKED_SLOTS, TRI_SHADE_MAT, TRI_SHADE_META,
@@ -581,8 +582,8 @@ def raygen(settings: AppSettings, frame: FrameConstants, width: int,
     px = xx.reshape(-1) + jitter[..., 0]
     py = yy.reshape(-1) + jitter[..., 1]
 
-    ncd_x = px / (width * 0.5) - 1.0
-    ncd_y = -(py / (height * 0.5) - 1.0)
+    ncd_x = div(px, width * 0.5) - 1.0
+    ncd_y = -(div(py, height * 0.5) - 1.0)
 
     ivp = frame.inv_view_projection
 

@@ -34,7 +34,8 @@ from ..app.settings import (CLUSTER_TILE_SIZE, SPOT_SHADOW_NEAR_CLIP,
                             AppSettings, MSAAModes)
 from ..core import brdf as brdf_lib
 from ..core.constants import FP16Max, FP32Max, InvPi
-from ..core.math3 import dot, normalize, reflect, saturate, smoothstep, sqrt
+from ..core.math3 import (div, dot, normalize, reflect, saturate, smoothstep,
+                          sqrt)
 from ..sky.cubemap import sample_cubemap
 from .integrator import (FrameConstants, _fetch_shade_inputs,
                          _make_alpha_test, _sample_packed)
@@ -113,7 +114,7 @@ def shade_pixels(scene, bvh, rec, ray_d, settings: AppSettings,
     output = torch.zeros((n, 3), dtype=f32, device=dev)
     fwd = torch.from_numpy(np.asarray(camera_forward, np.float32)).to(dev)
     depth_vs = dot(pos - cam, fwd[None, :])
-    norm_depth = saturate((depth_vs - near_clip) / (far_clip - near_clip))
+    norm_depth = saturate(div(depth_vs - near_clip, far_clip - near_clip))
 
     def lighting(light_dir, irradiance):
         return brdf_lib.calc_lighting(normal, light_dir, irradiance,
@@ -288,8 +289,8 @@ def primary_rays(settings: AppSettings, frame: FrameConstants, width: int,
     for ox, oy in MSAA_OFFSETS[settings.msaa_mode]:
         px = xx + 0.5 + ox
         py = yy + 0.5 + oy
-        ncd_x = px / (width * 0.5) - 1.0
-        ncd_y = -(py / (height * 0.5) - 1.0)
+        ncd_x = div(px, width * 0.5) - 1.0
+        ncd_y = -(div(py, height * 0.5) - 1.0)
 
         def unproject(z):
             out = (ncd_x[..., None] * ivp[0] + ncd_y[..., None] * ivp[1]

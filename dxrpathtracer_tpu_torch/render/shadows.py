@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..accel.traverse import closest_hit
-from ..core.math3 import dot, exp, sqrt
+from ..core.math3 import div, dot, exp, sqrt
 from .camera import perspective_fov_lh
 
 NUM_CASCADES = 4
@@ -235,7 +235,7 @@ def _cascade_project(cascades, s, pos_ws, normal_ws, n_dot_l,
     # GetShadowPosOffset (Shadows.hlsl:307-314): 4 shadow texels along the
     # normal, faded in as nDotL falls off; texel world size = 2r/S.
     offset = (normal_ws * ((1.0 - torch.clamp(n_dot_l, 0.0, 1.0))
-                           * 4.0 * (2.0 * radius / s))[..., None])
+                           * 4.0 * div(2.0 * radius, s))[..., None])
     p = pos_ws + offset
     # Row-vector projection as explicit products and sums.
     hx = (p[:, 0] * vp[:, 0, 0] + p[:, 1] * vp[:, 1, 0]
@@ -287,7 +287,7 @@ def _pcf_filter(flat, base, s, hx, hy, light_depth):
             tx = torch.clamp(bx + (gx - 3), 0, s - 1)
             d = flat[base + ty * s + tx]
             vis = vis + w * (light_depth <= d).to(torch.float32)
-    return vis / float(PCF_W.sum())
+    return div(vis, float(PCF_W.sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +360,7 @@ def render_spot_depth_maps(bvh, spots, map_size: int = SPOT_SHADOW_MAP_SIZE,
     hit = rec.tri_id.reshape(len(spots), s * s) >= 0
     maps = []
     for k, sp in enumerate(spots):
-        frac = (zview[k] - sp.near) / (sp.far - sp.near)
+        frac = div(zview[k] - sp.near, sp.far - sp.near)
         frac = torch.where(hit[k], torch.clamp(frac, 0.0, 1.0), 1.0)
         maps.append(frac.reshape(s, s))
     return torch.stack(maps)
@@ -380,7 +380,7 @@ def spot_visibility_pcf(depth_maps, spots, light_idx: int, pos_ws, normal_ws,
     # normal-offset bias scaled by the local texel footprint (perspective:
     # texel world size grows linearly with view depth)
     zview = dot(pos_ws - position[None, :], forward[None, :])
-    texel_ws = 2.0 * zview / s  # ~frustum width at depth / map size
+    texel_ws = div(2.0 * zview, s)  # ~frustum width at depth / map size
     offset = (normal_ws * ((1.0 - torch.clamp(n_dot_l, 0.0, 1.0))
                            * 4.0 * texel_ws)[..., None])
     p = pos_ws + offset
@@ -394,7 +394,7 @@ def spot_visibility_pcf(depth_maps, spots, light_idx: int, pos_ws, normal_ws,
     ndc_x = hx / safe_w
     ndc_y = hy / safe_w
     zo = dot(p - position[None, :], forward[None, :])
-    light_depth = (zo - sp.near) / (sp.far - sp.near) - PCF_BIAS
+    light_depth = div(zo - sp.near, sp.far - sp.near) - PCF_BIAS
 
     base = torch.full(pos_ws.shape[:1], light_idx * (s * s),
                       dtype=torch.int64, device=dev)
@@ -508,7 +508,7 @@ def filter_moment_maps(maps, filter_size: float = 3.0):
                 m.index_select(axis, torch.clamp(idx + k, 0, s - 1))
                 + m.index_select(axis, torch.clamp(idx - k, 0, s - 1)))
             weight += 2.0 * w
-        return total / weight
+        return div(total, weight)
 
     return blur(blur(maps, 1), 2)
 
@@ -541,7 +541,7 @@ def _bilinear_fetch4(maps, cidx, hx, hy):
 def reduce_light_bleeding(amt, clip_amt):
     """ReduceLightBleeding (EVSM.hlsl): clip the [0, clipAmt] tail and
     linearly rescale."""
-    return torch.clamp((amt - clip_amt) / (1.0 - clip_amt), 0.0, 1.0)
+    return torch.clamp(div(amt - clip_amt, 1.0 - clip_amt), 0.0, 1.0)
 
 
 def chebyshev_upper_bound(m1, m2, mean, min_variance, bleed):

@@ -101,9 +101,10 @@ def test_sky_cache_matches(sun, albedo, turbidity):
     assert got.model_name == want.model_name == "hosek"
 
 
-def test_renders_with_jax_blocked():
+def test_renders_with_jax_blocked(tmp_path):
     """`import dxrpathtracer_tpu_torch`, every module of the port, a BoxTest
-    frame and a tiny BoxTest bake with every import of jax made to fail."""
+    frame, a tiny BoxTest bake, a 16x16 `animate` frame and the import of a
+    written FBX with every import of jax made to fail."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -118,6 +119,9 @@ def test_renders_with_jax_blocked():
         "from dxrpathtracer_tpu_torch.render import (denoise, film,"
         " learned_denoise, postfx)\n"
         "from dxrpathtracer_tpu_torch.tools import profile_bake\n"
+        "from dxrpathtracer_tpu_torch.accel import device_build\n"
+        "from dxrpathtracer_tpu_torch.scene import animate, cache, fbx\n"
+        "from dxrpathtracer_tpu_torch.tools import fbx_cases\n"
         "from dxrpathtracer_tpu_torch.app.session import RenderSession\n"
         "from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes\n"
         "s = RenderSession(AppSettings(current_scene=Scenes.BoxTest), 16, 16,"
@@ -130,13 +134,35 @@ def test_renders_with_jax_blocked():
         "lm = b.denoised_lightmap('learned')\n"
         "assert lm.shape == (16, 16, 3) and bool(lm.isfinite().all())\n"
         "assert float(b.accum[..., 3].sum()) > 0\n"
+        "out = sys.argv[1]\n"
+        "cli.main(['animate', '--current-scene', 'BoxTest', '--width', '16',"
+        " '--height', '16', '--frames', '1', '--spp', '1', '--output',"
+        " out + '/anim', '--device', 'cpu'])\n"
+        "import os\n"
+        "assert os.path.getsize(out + '/anim/frame_000.png') > 100\n"
+        "from dxrpathtracer_tpu_torch.scene.registry import PRESETS, load_scene\n"
+        "import numpy as np\n"
+        "w = fbx_cases.SceneWriter()\n"
+        "w.mesh([[0, 0, 0], [100, 0, 0], [0, 100, 0], [100, 100, 0]],"
+        " [(0, 1, 3, 2)], uvs=[[0, 0], [1, 0], [1, 1], [0, 1]],"
+        " textures={'DiffuseColor': 'a.dds'})\n"
+        "w.spot_light((0, 300, 0))\n"
+        "path = os.path.join(out, PRESETS[Scenes.WhiteFurnace].fbx_path)\n"
+        "os.makedirs(os.path.dirname(path))\n"
+        "w.write(path)\n"
+        "fbx_cases.write_dds(os.path.join(os.path.dirname(path), 'a.dds'),"
+        " np.full((2, 2, 4), 200, np.uint8), srgb=True)\n"
+        "sc, _ = load_scene(Scenes.WhiteFurnace, strict=True, asset_root=out)\n"
+        "assert sc.num_triangles == 2 and sc.num_lights == 1\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " m.split('.')[0] in"
         " ('jax', 'jaxlib', 'dxrpathtracer_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
-                          env=dict(os.environ, PYTHONPATH=REPO),
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300,
+                          env=dict(os.environ, PYTHONPATH=REPO,
+                                   DXRPT_SCENE_CACHE=str(tmp_path / "cache")))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("ok")
