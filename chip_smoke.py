@@ -12,9 +12,12 @@ lightmap on the pair atlas, default settings: path length 3,
 sqrt_num_samples 4), raster mode (both scenes at 1080p MSAA4x, sun
 shadows by rays or cascaded depth maps, and the raster commands), scene
 import (SponzaAlpha-checker written as an FBX with DDS textures and
-imported through the scene cache) and dynamic geometry (the `animate`
+imported through the scene cache), dynamic geometry (the `animate`
 flow: the stand-in rotated and its W8 table rebuilt on the card every
-frame). Phases, each fatal on failure:
+frame) and the interactive viewer (app/interactive.py: a scripted session
+on the stand-in at 1080p with its raster toggle, the bake window, scene
+switches, checkpoints, hot reload and crash dumps). Phases, each fatal on
+failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
@@ -103,7 +106,7 @@ frame). Phases, each fatal on failure:
      instantiation (one primary closest, one sun any) and the gather's;
      the frame must be finite and lit;
   R2. the alpha raster frame: SponzaAlpha-checker at 1080p MSAA4x in the
-     rays, pcf, evsm and msm shadow modes, 5 frames each after a first:
+     rays, pcf, evsm and msm shadow modes, 3 frames each after a first:
      ms/frame, the profiler's five scope ms, launches per frame (rays: one
      primary closest and two any-hit launches, the sun's and the four
      spots'; the map modes: three closest-hit launches, the cascade
@@ -145,6 +148,43 @@ frame). Phases, each fatal on failure:
      rel-RMSE <= 1e-4; `python -m dxrpathtracer_tpu_torch animate` at
      480x270, 4 frames, into chiprun_out/animate/ (a GIF where PIL is
      installed).
+  I. the interactive viewer, its terminal frames presented into a buffer
+     (the bytes are counted, never printed):
+     I1. InteractiveApp on the stand-in at 1080p: 8 frames, `w`, `l`, `]`,
+       a settings-menu edit of roughness_scale (restart-relevant), `m` (3
+       raster frames at the reference's defaults), `m`, `p`: the sample
+       index after every step as the CPU tests assert it, median path and
+       raster ms/frame (the app's frame times: each frame synchronises),
+       present ms, launches per frame (path >= 5 traversals and >= 1
+       gather, raster >= 2 and >= 1); every thumbnail the pipelined present
+       drew byte-equal to a synchronous display_thumbnail of the same
+       accumulation; the screenshot in chiprun_out/interactive/;
+     I2. scene key `1` (BoxTest), then `b`: atlas, texel-map and
+       surface-map seconds; 4 bake frames cycling `v`: ms per bake frame,
+       launches per bake frame (both > 0); all seven previews of the right
+       shape, their sources finite;
+     I3. scene keys 3, 4, 5 (the SunTemple stand-in, WhiteFurnace,
+       Stronghold -> the stand-in): seconds each, first frame finite;
+     I4. one script (moves, a menu edit, `m` and back) on BoxTest at
+       240x135 through the app on the card and on the CPU: equal sample
+       indices and cameras, rel-RMSE <= 1e-4 and thumbnails within 1
+       (the values that differ are counted) after every step;
+     I5. 3 samples, checkpoint_state, restore_state into a new session, 2
+       more: bit-equal to 5 samples of one session (stand-in, 1080p);
+     I6. hot reload in a copy of the package (with its build/) imported by
+       a subprocess: the viewer renders 2 frames, the copy's
+       csrc/gather.cu is edited, the watcher reloads accel.gather and its
+       dependents, nvcc builds a new hash-named library (seconds), the
+       accumulation restarts and the next 2 frames equal the first 2 bit
+       for bit;
+     I7. `bake --checkpoint F` (F a 32x32 accumulation, a 64^2 bake) as a
+       subprocess with DXRPT_CRASH_DUMP set: it exits non-zero and its
+       dump names the card, torch and CUDA, the settings, the frame and
+       scene tables, and ends in the ValueError's traceback;
+     I8. `python -m dxrpathtracer_tpu_torch interactive --current-scene
+       Sponza --width 1920 --height 1080 --script 'w:2,l:1,:4'
+       --max-frames 8`: exit 0, and its stderr reports the script's 7
+       frames and a mean ms/frame.
 
 BOUND: the least time the card could take, the larger of the bytes moved
 (each input read once, each output written once) over 3.35 TB/s (NVIDIA H100
@@ -171,7 +211,8 @@ without a step), so its time counts no inactive lane.
 The line before the last is {"kernels": [...]}: one entry per traversal
 instantiation and one for the gather kernel, whose `launches` count the
 main paths' runs (the opaque frame, the alpha frames, the bake, the raster
-frames of R1 and R2, the imported frames of F and the animation of AN) and
+frames of R1 and R2, the imported frames of F, the animation of AN and the
+viewer of I1-I3) and
 every one of which must be > 0; the last is {"ok": true, "device": {...}}.
 Full results also go to chiprun_out/chip_smoke.json. Exits non-zero, with
 no result line, when there is no CUDA device or any phase fails. Imports no
@@ -1259,7 +1300,7 @@ def phase_same_bake():
 # Raster mode (EnableRayTracing=false)
 
 RASTER_FRAMES = 10      # R1: frames after the first
-RASTER_MODE_FRAMES = 5  # R2: frames after the first, per shadow mode
+RASTER_MODE_FRAMES = 3  # R2: frames after the first, per shadow mode
 SHADOW_MODES = ("rays", "pcf", "evsm", "msm")
 SAME_RASTER_MAP = 128   # R4's cascade map size (the spot maps are twice it)
 
@@ -1919,6 +1960,536 @@ def phase_animate(smi):
     return out, classes, launches
 
 
+# ---------------------------------------------------------------------------
+# I: the interactive viewer (app/interactive.py)
+
+VIEW_FRAMES = 8          # I1's accumulating frames
+VIEW_RASTER_FRAMES = 3   # I1's raster frames
+BAKE_VIEW_FRAMES = 4     # I2's bake frames
+SAME_VIEW_SIZE = (240, 135)
+CKPT_N, CKPT_M = 3, 2    # I5: samples before and after the checkpoint
+VIEW_COMMAND = ["interactive", "--current-scene", "Sponza", "--width",
+                "1920", "--height", "1080", "--script", "w:2,l:1,:4",
+                "--max-frames", "8"]
+VIEW_COMMAND_FRAMES = 7  # the script's frames: w:2 + l:1 + :4 (< 8)
+
+
+def menu_edit(field, keys="l"):
+    """Script steps: open the settings menu, move to `field`, press `keys`
+    there, close the menu."""
+    import dataclasses
+
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings
+    names = [f.name for f in dataclasses.fields(AppSettings)
+             if not isinstance(f.default, tuple)]
+    return ([("o", 0)] + [("j", 0)] * names.index(field)
+            + [(k, 0) for k in keys] + [("o", 0)])
+
+
+class ViewerProbe:
+    """Instruments an InteractiveApp while it runs: per frame its kind, its
+    ms (the app's own frame_times) and its kernel launches; per present its
+    host ms; per key its host seconds; after every path or raster frame a
+    synchronous display_thumbnail of the accumulation the frame left; every
+    thumbnail the present draws (the input of ansi_halfblock_frame), with
+    the mode it was drawn in. Inside `with probe:` the app's terminal
+    output goes to `probe.screen`, not to this script's output."""
+
+    def __init__(self, app):
+        self.app = app
+        self.frames, self.presents, self.keys = [], [], []
+        self.sync_thumbs, self.drawn = [], []
+        self.screen = None
+        render_one, present, handle_key = (app.render_one, app.present,
+                                           app.handle_key)
+
+        def render():
+            kind = ("bake" if app.bake_mode else
+                    "raster" if app.raster_mode else "path")
+            before = read_launches()
+            render_one()
+            after = read_launches()
+            self.frames.append({
+                "kind": kind, "ms": app.frame_times[-1] * 1e3,
+                "traverse": after["traverse"] - before["traverse"],
+                "row_gather": after["row_gather"] - before["row_gather"]})
+            if kind != "bake":
+                cols = min(app.PRESENT_COLS, app.width)
+                rows = min(app.PRESENT_ROWS, app.height)
+                self.sync_thumbs.append(
+                    app.session.display_thumbnail(cols, rows).cpu().numpy())
+
+        def timed_present():
+            t0 = time.perf_counter()
+            present()
+            self.presents.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_key(key):
+            t0 = time.perf_counter()
+            handle_key(key)
+            self.keys.append((key, time.perf_counter() - t0))
+
+        app.render_one, app.present, app.handle_key = (render, timed_present,
+                                                      timed_key)
+
+    def __enter__(self):
+        import io
+
+        from dxrpathtracer_tpu_torch.app import interactive
+        self._ansi = interactive.ansi_halfblock_frame
+        app, ansi = self.app, self._ansi
+
+        def drawing(rgb8, *a, **kw):
+            self.drawn.append((app.bake_mode, rgb8.copy()))
+            return ansi(rgb8, *a, **kw)
+
+        interactive.ansi_halfblock_frame = drawing
+        self.screen = io.StringIO()
+        self._redirect = contextlib.redirect_stdout(self.screen)
+        self._redirect.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from dxrpathtracer_tpu_torch.app import interactive
+        self._redirect.__exit__(*exc)
+        interactive.ansi_halfblock_frame = self._ansi
+
+    def run(self, script):
+        """Each step through run_scripted; the sample index after each."""
+        samples = []
+        for step in script:
+            self.app.run_scripted([step])
+            samples.append(self.app.session.sample_idx)
+        return samples
+
+    def frame_stats(self, kind, frames=None):
+        rows = [f for f in (self.frames if frames is None else frames)
+                if f["kind"] == kind]
+        return {"frames": len(rows),
+                "ms_median": statistics.median(f["ms"] for f in rows),
+                "ms": [f["ms"] for f in rows],
+                "traverse_per_frame": sorted({f["traverse"] for f in rows}),
+                "row_gather_per_frame": sorted({f["row_gather"]
+                                                for f in rows})}
+
+
+def phase_viewer(smi):
+    """I1-I3 on one InteractiveApp on the card, its terminal frames
+    presented into a buffer: the full-size scripted session, the bake
+    window on BoxTest, three scene switches. Returns the results and the
+    kernel launches of the three."""
+    from dxrpathtracer_tpu_torch.app.interactive import InteractiveApp
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    w, h = FRAME_SIZE
+    out_dir = os.path.join(ROOT, "chiprun_out", "interactive")
+    os.makedirs(out_dir, exist_ok=True)
+    for old in os.listdir(out_dir):
+        if old.startswith("screenshot_"):
+            os.remove(os.path.join(out_dir, old))
+    reset_launches()
+    t0 = time.time()
+    app = InteractiveApp(AppSettings(current_scene=Scenes.Sponza), w, h,
+                         display=True, device=DEVICE)
+    sync()
+    init_s = time.time() - t0
+    probe = ViewerProbe(app)
+    edit = menu_edit("roughness_scale")   # a restart-relevant field
+    script = [(None, VIEW_FRAMES), ("w", 1), ("l", 1), ("]", 1), *edit,
+              (None, 1), ("m", VIEW_RASTER_FRAMES), ("m", 1), ("p", 0)]
+    want = [VIEW_FRAMES, 1, 1, 2, *([2] * (len(edit) - 2)), 0, 0, 1, 0, 1,
+            1]
+    cwd = os.getcwd()
+    os.chdir(out_dir)   # the screenshot lands here
+    try:
+        with probe:
+            got = probe.run(script)
+            i1_frames = len(probe.frames)
+            i1_drawn = [d for bake, d in probe.drawn if not bake]
+            i1_screen = len(probe.screen.getvalue().encode())
+            # I2: the bake window on BoxTest
+            n_keys = len(probe.keys)
+            probe.run([("1", 0)])
+            probe.run([("b", 1)])
+            bake_key_s = probe.keys[-1][1]
+            probe.run([("v", 1)] * (BAKE_VIEW_FRAMES - 1))
+            previews = {}
+            side = min(app.PRESENT_ROWS, app.PRESENT_COLS,
+                       app.baker.resolution)
+            for i, name in enumerate(app.PREVIEWS):
+                app.preview_idx = i
+                previews[name] = app._bake_preview_thumb(side, side)
+            baker = app.baker
+            sources = {"accum": baker.accum,
+                       "lightmap": baker.lightmap(),
+                       "guided": baker.denoised_lightmap("guided"),
+                       "median": baker.denoised_lightmap("median"),
+                       **baker.surface_maps}
+            # I3: scene switches
+            switches = []
+            for key in ("3", "4", "5"):
+                probe.run([(key, 1)])
+                sess = app.session
+                switches.append({
+                    "key": key, "scene": sess.preset.name,
+                    "triangles": sess.scene.num_triangles,
+                    "switch_s": probe.keys[-1][1],
+                    "first_frame_ms": probe.frames[-1]["ms"],
+                    "finite": bool(sess.accum.isfinite().all())})
+            screen_bytes = len(probe.screen.getvalue().encode())
+    finally:
+        os.chdir(cwd)
+    launches = read_launches()
+
+    # I1 checks
+    if got != want:
+        raise SystemExit(f"chip_smoke: viewer sample indices {got}, want "
+                         f"{want}")
+    i1 = probe.frames[:i1_frames]
+    path = probe.frame_stats("path", i1)
+    raster = probe.frame_stats("raster", i1)
+    for f in i1:
+        need = (5, 1) if f["kind"] == "path" else (2, 1)
+        if f["traverse"] < need[0] or f["row_gather"] < need[1]:
+            raise SystemExit(f"chip_smoke: viewer {f['kind']} frame "
+                             f"launched {f}, want >= {need}")
+    thumbs = probe.sync_thumbs[:sum(f["kind"] != "bake" for f in i1)]
+    if len(i1_drawn) != len(thumbs) - 1:
+        raise SystemExit(f"chip_smoke: viewer drew {len(i1_drawn)} "
+                         f"thumbnails for {len(thumbs)} frames")
+    for k, (drawn, ref) in enumerate(zip(i1_drawn, thumbs)):
+        if drawn.shape != ref.shape or not (drawn == ref).all():
+            raise SystemExit(f"chip_smoke: pipelined thumbnail {k} differs "
+                             f"from the synchronous one")
+    shots = [n for n in os.listdir(out_dir) if n.startswith("screenshot_")]
+    if shots != ["screenshot_000.png"] or png_shape(
+            os.path.join(out_dir, shots[0])) != (h, w):
+        raise SystemExit(f"chip_smoke: viewer screenshots {shots}")
+    present = statistics.median(probe.presents[:i1_frames])
+    i1_res = {"init_s": init_s, "sample_idx": got, "path": path,
+              "raster": raster, "present_ms_median": present,
+              "thumbnails_checked": len(i1_drawn),
+              "bytes_presented": i1_screen, "card": smi}
+    # I2 checks
+    bake = probe.frame_stats("bake")
+    if bake["frames"] != BAKE_VIEW_FRAMES or min(
+            bake["traverse_per_frame"]) < 1 or min(
+            bake["row_gather_per_frame"]) < 1:
+        raise SystemExit(f"chip_smoke: viewer bake frames {bake}")
+    for name, src in sources.items():
+        if not bool(src.isfinite().all()):
+            raise SystemExit(f"chip_smoke: bake window {name} not finite")
+    for name, th in previews.items():
+        if th.shape != (side, side, 3) or th.dtype.name != "uint8":
+            raise SystemExit(f"chip_smoke: preview {name} {th.shape} "
+                             f"{th.dtype}")
+    i2_res = {"resolution": baker.resolution,
+              "triangles": baker.session.scene.num_triangles,
+              "b_key_s": bake_key_s, "setup_s": baker.setup_s,
+              "bake": bake, "previews": {
+                  n: float(th.mean()) for n, th in previews.items()},
+              "preview_side": side, "keys_s": probe.keys[n_keys:]}
+    # I3 checks
+    if not all(s["finite"] for s in switches):
+        raise SystemExit(f"chip_smoke: scene switches {switches}")
+    res = {"I1": i1_res, "I2": i2_res, "I3": switches,
+           "bytes_presented": screen_bytes, "kernel_launches": launches}
+    log(f"I1 viewer (Sponza-class stand-in {w}x{h}): init {init_s:.2f} s; "
+        f"path {path['ms_median']:.2f} ms/frame (median of "
+        f"{path['frames']}), raster {raster['ms_median']:.2f} ms/frame "
+        f"(median of {raster['frames']}), present "
+        f"{present:.3f} ms (median); the sample index as expected after "
+        f"each of {len(script)} steps; launches per path "
+        f"frame {path['traverse_per_frame']} traversal, "
+        f"{path['row_gather_per_frame']} gather; per raster frame "
+        f"{raster['traverse_per_frame']}, {raster['row_gather_per_frame']}; "
+        f"{len(i1_drawn)} pipelined thumbnails byte-equal to synchronous "
+        f"ones; {i1_screen} bytes presented [{smi}]")
+    log(f"I2 bake window (BoxTest, {baker.resolution}^2): b {bake_key_s:.2f}"
+        f" s (atlas {baker.setup_s['atlas']:.2f} s, texel map "
+        f"{baker.setup_s['texel_map']:.3f} s, surface maps "
+        f"{baker.setup_s['surface_maps']:.3f} s); {bake['ms_median']:.2f} "
+        f"ms/bake frame (median of {bake['frames']}), launches per bake "
+        f"frame {bake['traverse_per_frame']} traversal, "
+        f"{bake['row_gather_per_frame']} gather; seven previews {side}^2 "
+        f"finite [{smi}]")
+    for s in switches:
+        log(f"I3 key {s['key']}: {s['scene']} ({s['triangles']} triangles) "
+            f"{s['switch_s']:.2f} s, first frame {s['first_frame_ms']:.1f} "
+            f"ms, finite")
+    return res, launches
+
+
+def phase_viewer_same():
+    """I4: one script on BoxTest at SAME_VIEW_SIZE through InteractiveApp
+    on the card and on the CPU: equal sample indices and camera states,
+    accumulations within rel-RMSE 1e-4 and thumbnails within 1 per channel
+    after every step."""
+    from dxrpathtracer_tpu_torch.app.interactive import InteractiveApp
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    script = [(None, 2), ("w", 1), ("j", 1),
+              *menu_edit("max_path_length"), (None, 1), ("m", 1), ("m", 1)]
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.time()
+        app = InteractiveApp(AppSettings(current_scene=Scenes.BoxTest),
+                             *SAME_VIEW_SIZE, display=False, device=dev)
+        cols = min(app.PRESENT_COLS, app.width)
+        rows = min(app.PRESENT_ROWS, app.height)
+        states = []
+        for step in script:
+            app.run_scripted([step])
+            s = app.session
+            states.append((s.sample_idx, s.camera.state_tuple(),
+                           s.accum.cpu(),
+                           s.display_thumbnail(cols, rows).cpu()))
+        runs[dev] = states
+        log(f"I4 on {dev}: {time.time() - t0:.2f} s")
+    worst, differ = 0.0, 0
+    for k, (got, ref) in enumerate(zip(runs[DEVICE], runs["cpu"])):
+        if got[:2] != ref[:2]:
+            raise SystemExit(f"chip_smoke: I4 step {k}: sample/camera "
+                             f"{got[:2]} vs {ref[:2]}")
+        rel = rel_rmse(got[2], ref[2])
+        diff = (got[3].int() - ref[3].int()).abs()
+        if not (rel <= 1e-4 and bool(got[2].isfinite().all())
+                and int(diff.max()) <= 1):
+            raise SystemExit(f"chip_smoke: I4 step {k}: rel RMSE {rel:.3e}, "
+                             f"thumbnail off by {int(diff.max())}")
+        worst = max(worst, rel)
+        differ += int((diff > 0).sum())
+    log(f"I4 same viewer session card vs cpu (BoxTest {SAME_VIEW_SIZE}, "
+        f"{len(script)} steps): sample indices and cameras equal, worst rel "
+        f"RMSE {worst:.3e}, {differ} thumbnail values differ by 1")
+    return {"steps": len(script), "worst_rel_rmse": worst,
+            "thumbnail_values_differing": differ}
+
+
+def phase_viewer_checkpoint(smi):
+    """I5: CKPT_N samples, checkpoint_state, restore_state into a new
+    session, CKPT_M more: bit-equal to CKPT_N + CKPT_M samples of one
+    session (the Sponza-class stand-in at FRAME_SIZE)."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    settings = AppSettings(current_scene=Scenes.Sponza)
+    a = RenderSession(settings, *FRAME_SIZE, device=DEVICE)
+    a.render_to_completion(CKPT_N)
+    sync()
+    t0 = time.time()
+    state = a.checkpoint_state()
+    ckpt_ms = (time.time() - t0) * 1e3
+    whole = a.render_to_completion(CKPT_N + CKPT_M).cpu()
+    b = RenderSession(settings, *FRAME_SIZE, device=DEVICE)
+    t0 = time.time()
+    b.restore_state(state)
+    sync()
+    restore_ms = (time.time() - t0) * 1e3
+    for _ in range(CKPT_M):
+        b.render_frame()
+    resumed = b.accum.cpu()
+    if b.sample_idx != CKPT_N + CKPT_M or not torch.equal(resumed, whole):
+        raise SystemExit(f"chip_smoke: I5 resumed render differs (sample "
+                         f"{b.sample_idx}, max diff "
+                         f"{float((resumed - whole).abs().max()):.3e})")
+    log(f"I5 checkpoint: {CKPT_N} + {CKPT_M} samples resumed in a new "
+        f"session bit-equal to {CKPT_N + CKPT_M} uninterrupted; "
+        f"checkpoint_state {ckpt_ms:.2f} ms, restore_state {restore_ms:.2f} "
+        f"ms at {FRAME_SIZE[0]}x{FRAME_SIZE[1]} [{smi}]")
+    return {"n": CKPT_N, "m": CKPT_M, "bit_equal": True,
+            "checkpoint_ms": ckpt_ms, "restore_ms": restore_ms}
+
+
+_HOT_RELOAD = r"""
+import glob
+import json
+import os
+import sys
+import time
+
+import torch
+
+root, w, h = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+import dxrpathtracer_tpu_torch as pkg
+assert pkg.__file__.startswith(root), pkg.__file__
+from dxrpathtracer_tpu_torch.accel import gather
+from dxrpathtracer_tpu_torch.app.interactive import InteractiveApp
+from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+
+app = InteractiveApp(AppSettings(current_scene=Scenes.Sponza), w, h,
+                     display=False)
+app.run_scripted([(None, 2)])
+before = app.session.accum.clone()
+launches_before = gather.KERNEL_LAUNCHES
+build = os.path.join(root, "dxrpathtracer_tpu_torch", "build")
+libs = set(glob.glob(os.path.join(build, "libgather_*.so")))
+src = str(gather.KERNEL_SOURCE)
+assert src.startswith(root), src
+with open(src, "a") as f:
+    f.write("\n// edited while the viewer runs\n")
+st = os.stat(src)
+os.utime(src, (st.st_atime, st.st_mtime + 2.0))
+t0 = time.time()
+reloaded = app.check_hot_reload(now=time.monotonic() + 2.0)
+reload_s = time.time() - t0
+g = sys.modules["dxrpathtracer_tpu_torch.accel.gather"]
+t = sys.modules["dxrpathtracer_tpu_torch.accel.traverse"]
+dropped = g._kernel is None and g.KERNEL_LAUNCHES == 0
+restarted = app.session.sample_idx == 0
+t0 = time.time()
+g.kernel_library()
+nvcc_s = time.time() - t0
+new = sorted(set(glob.glob(os.path.join(build, "libgather_*.so"))) - libs)
+app.run_scripted([(None, 2)])
+after = app.session.accum
+print(json.dumps({
+    "reloaded": reloaded, "reload_s": reload_s, "nvcc_s": nvcc_s,
+    "new_libraries": [os.path.basename(p) for p in new],
+    "library_dropped": dropped, "restarted": restarted,
+    "notice": app.reload_notice,
+    "gather_launches_before": launches_before,
+    "gather_launches_after": g.KERNEL_LAUNCHES,
+    "traverse_launches_after": sum(t.KERNEL_LAUNCHES.values()),
+    "bit_equal": bool(torch.equal(before, after)),
+    "finite": bool(after.isfinite().all())}))
+"""
+
+
+def phase_hot_reload(smi):
+    """I6: the package (with its build/ directory) copied to a temporary
+    directory and imported there by a subprocess, which starts the viewer
+    at FRAME_SIZE, renders 2 frames, appends a comment to the copy's
+    csrc/gather.cu and polls the viewer's watcher: accel.gather and its
+    dependents reload, a new hash-named library is built (nvcc's seconds),
+    the accumulation restarts, and the next 2 frames equal the first 2 bit
+    for bit. The repository's own files are never edited."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reload_")
+    try:
+        pkg = "dxrpathtracer_tpu_torch"
+        shutil.copytree(os.path.join(ROOT, pkg), os.path.join(tmp, pkg),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        # what the package reads outside itself: the C++ sources of its
+        # native BVH libraries and the sky's coefficient table
+        shutil.copytree(os.path.join(ROOT, "native"),
+                        os.path.join(tmp, "native"),
+                        ignore=shutil.ignore_patterns("*.so"))
+        shutil.copytree(
+            os.path.join(ROOT, "dxrpathtracer_tpu", "sky", "data"),
+            os.path.join(tmp, "dxrpathtracer_tpu", "sky", "data"))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", _HOT_RELOAD, tmp, *map(str, FRAME_SIZE)],
+            cwd=tmp, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=tmp))
+        secs = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: I6 hot reload failed:\n"
+                         f"{proc.stderr[-3000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    need = {f"dxrpathtracer_tpu_torch.{m}" for m in (
+        "accel.gather", "accel.traverse", "render.integrator",
+        "app.session")}
+    if not (need <= set(r["reloaded"]) and len(r["new_libraries"]) == 1
+            and r["library_dropped"] and r["restarted"] and r["bit_equal"]
+            and r["finite"] and r["gather_launches_after"] > 0
+            and r["traverse_launches_after"] > 0):
+        raise SystemExit(f"chip_smoke: I6 hot reload: {r}")
+    r["subprocess_s"] = secs
+    log(f"I6 hot reload (a copy of the package; csrc/gather.cu edited): "
+        f"{len(r['reloaded'])} modules reloaded in {r['reload_s']:.2f} s, "
+        f"new library {r['new_libraries'][0]} built by nvcc in "
+        f"{r['nvcc_s']:.2f} s; the frames after bit-equal to the frames "
+        f"before; gather launches {r['gather_launches_before']} before, "
+        f"{r['gather_launches_after']} after the reload; {secs:.1f} s in "
+        f"all [{smi}]")
+    return r
+
+
+def phase_crash_dump(smi):
+    """I7: `bake --checkpoint F` with F a 32x32 accumulation on a 64^2 bake:
+    Baker.restore_state raises; the command must exit non-zero and leave a
+    crash dump with the card, the versions, the settings, the frame, the
+    scene tables and the traceback of that ValueError."""
+    import numpy as np
+    out_dir = os.path.join(ROOT, "chiprun_out", "interactive")
+    os.makedirs(out_dir, exist_ok=True)
+    ckpt = os.path.join(out_dir, "bad_checkpoint.npz")
+    dump = os.path.join(out_dir, "crash.json")
+    if os.path.exists(dump):
+        os.remove(dump)
+    np.savez(ckpt, accum=np.zeros((32, 32, 4), np.float32), sample_index=3)
+    proc = subprocess.run(
+        [sys.executable, "-m", "dxrpathtracer_tpu_torch", "bake",
+         "--current-scene", "BoxTest", "--resolution", "64", "--checkpoint",
+         ckpt, "--output", os.path.join(out_dir, "never.png")], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=ROOT, DXRPT_CRASH_DUMP=dump))
+    if proc.returncode == 0 or not os.path.exists(dump):
+        raise SystemExit(f"chip_smoke: I7 bake exited {proc.returncode}, "
+                         f"dump {os.path.exists(dump)}")
+    with open(dump) as f:
+        rep = json.load(f)
+    plat = rep["platform"]
+    card = torch.cuda.get_device_name(0)
+    ok = (plat.get("torch_version") == torch.__version__
+          and plat.get("cuda_version") == torch.version.cuda
+          and plat.get("devices") and plat["devices"][0]["name"] == card
+          and plat.get("current_device") == 0
+          and "BoxTest" in rep["settings"]["current_scene"]
+          and rep["frame"]["scene"] == "BoxTest"
+          and rep["scene_tables"]["num_triangles"] > 0
+          and rep["traceback"][-1].startswith("ValueError")
+          and "does not fit" in rep["traceback"][-1])
+    if not ok:
+        raise SystemExit(f"chip_smoke: I7 crash dump: {json.dumps(rep)[:3000]}")
+    log(f"I7 crash dump: bake exited {proc.returncode}; {dump} names "
+        f"{plat['devices'][0]['name']} (capability "
+        f"{plat['devices'][0]['capability']}), torch "
+        f"{plat['torch_version']}, CUDA {plat['cuda_version']}; the "
+        f"settings, frame {rep['frame']}, scene tables "
+        f"{rep['scene_tables']}; traceback ends "
+        f"{rep['traceback'][-1].strip()!r}")
+    return {"exit_code": proc.returncode, "frame": rep["frame"],
+            "scene_tables": rep["scene_tables"], "platform": plat}
+
+
+def phase_viewer_command(smi):
+    """I8: the interactive command as a user runs it on the card."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dxrpathtracer_tpu_torch", *VIEW_COMMAND],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    secs = time.time() - t0
+    import re
+    m = re.search(r"(\d+) frames, mean ([\d.]+) ms/frame", proc.stderr)
+    if proc.returncode != 0 or m is None or int(m.group(1)) != \
+            VIEW_COMMAND_FRAMES:
+        raise SystemExit(f"chip_smoke: I8 interactive exited "
+                         f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    log(f"I8 `{' '.join(VIEW_COMMAND)}`: exit 0, {m.group(1)} frames, "
+        f"mean {m.group(2)} ms/frame, {secs:.1f} s in all [{smi}]")
+    return {"frames": int(m.group(1)), "mean_ms": float(m.group(2)),
+            "command_s": secs}
+
+
+def phase_interactive(smi):
+    """Phase I: I1-I8. Returns the results and the kernel launches of the
+    viewer's runs (I1-I3)."""
+    t0 = time.time()
+    res, launches = phase_viewer(smi)
+    torch.cuda.empty_cache()
+    res["I4"] = phase_viewer_same()
+    res["I5"] = phase_viewer_checkpoint(smi)
+    torch.cuda.empty_cache()
+    res["I6"] = phase_hot_reload(smi)
+    res["I7"] = phase_crash_dump(smi)
+    res["I8"] = phase_viewer_command(smi)
+    res["phase_s"] = time.time() - t0
+    log(f"phase I: {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -1956,12 +2527,14 @@ def main():
     torch.cuda.empty_cache()
     anim, (anim_classes, _, anim_trav, _, anim_inst), anim_launches = \
         phase_animate(smi)
+    torch.cuda.empty_cache()
+    viewer, viewer_launches = phase_interactive(smi)
 
     # each traversal instantiation: its launches on the main paths (the
     # opaque frame, the alpha frames, the bake, the raster frames, the
-    # imported frame, the animation) and its ray classes' sums
+    # imported frame, the animation, the viewer) and its ray classes' sums
     runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
-            *r2_launches, fbx_launches, anim_launches]
+            *r2_launches, fbx_launches, anim_launches, viewer_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -2011,7 +2584,8 @@ def main():
                    "fbx_ray_classes": fbx_classes,
                    "fbx_traversal_total": fbx_trav, "animate": anim,
                    "animate_ray_classes": anim_classes,
-                   "animate_traversal_total": anim_trav, **kernels}, f,
+                   "animate_traversal_total": anim_trav,
+                   "interactive": viewer, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

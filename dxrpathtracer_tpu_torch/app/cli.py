@@ -1,17 +1,20 @@
-"""Command-line shell: `python -m dxrpathtracer_tpu_torch render|animate|bake|uvviz ...`.
+"""Command-line shell: `python -m dxrpathtracer_tpu_torch render|animate|bake|interactive|uvviz ...`.
 
-The port of dxrpathtracer_tpu/app/cli.py's `render`, `animate`, `bake` and
-`uvviz` commands: every AppSettings field is a flag, as in the JAX package,
-plus each command's own. `render` path-traces, or with `--raster` (or
-EnableRayTracing=false) renders one forward-shaded frame, lit from a
-`bake --output FILE.npz` bundle with `--lightmap`; `--profile-trace DIR`
-writes a torch.profiler trace of the render. `animate` renders a turntable
-of the scene with its W8 table rebuilt on the device every frame.
-`--asset-root DIR` imports the scene's FBX from DIR (the reference's
-Content/ layout) where render, animate and bake load a scene; without it
-the scene is its procedural stand-in. They run on the card (`--device
-cuda`, the default) and raise when there is none; pass `--device cpu` for
-the plain versions. The `interactive` command is a later slice of the port.
+The port of dxrpathtracer_tpu/app/cli.py's commands: every AppSettings field
+is a flag, as in the JAX package, plus each command's own. `render`
+path-traces, or with `--raster` (or EnableRayTracing=false) renders one
+forward-shaded frame, lit from a `bake --output FILE.npz` bundle with
+`--lightmap`; `--profile-trace DIR` writes a torch.profiler trace of the
+render. `animate` renders a turntable of the scene with its W8 table
+rebuilt on the device every frame. `interactive` is the terminal viewer
+(app/interactive.py); `--script 'w:2,l:1,:4'` drives it without a
+terminal. `--asset-root DIR` imports the scene's FBX from DIR (the
+reference's Content/ layout) where render, animate, bake and interactive
+load a scene; without it the scene is its procedural stand-in. They run on
+the card (`--device cuda`, the default) and raise when there is none; pass
+`--device cpu` for the plain versions. Every command runs inside the crash
+guard (app/crashdump.py): an exception writes a JSON crash dump
+($DXRPT_CRASH_DUMP, or dxrpathtracer_crash.json) and is re-raised.
 """
 
 import argparse
@@ -336,6 +339,26 @@ def main(argv=None):
     _add_settings_flags(p_bake)
     p_bake.set_defaults(fn=cmd_bake)
 
+    p_int = sub.add_parser("interactive",
+                           help="interactive terminal viewer (App.cpp loop: "
+                                "WASD camera, live HUD, progressive restart)")
+    p_int.add_argument("--width", type=int, default=384)
+    p_int.add_argument("--height", type=int, default=216)
+    p_int.add_argument("--script", type=str, default=None,
+                       help="headless input script 'key:frames,...' "
+                            "(e.g. 'w:2,l:1,:4'); empty key = just render")
+    p_int.add_argument("--max-frames", type=int, default=None)
+    p_int.add_argument("--device", type=str, default="cuda",
+                       help="torch device; 'cpu' runs the plain versions")
+    _add_asset_root(p_int)
+    _add_settings_flags(p_int)
+
+    def _cmd_interactive(args):
+        from .interactive import cmd_interactive
+        return cmd_interactive(args)
+
+    p_int.set_defaults(fn=_cmd_interactive)
+
     p_uv = sub.add_parser("uvviz", help="visualize the lightmap UV layout")
     p_uv.add_argument("--resolution", type=int, default=1024)
     p_uv.add_argument("--atlas", type=str, default="charts",
@@ -347,7 +370,12 @@ def main(argv=None):
     p_uv.set_defaults(fn=cmd_uvviz)
 
     args = parser.parse_args(argv)
-    return args.fn(args)
+    # crash-dump capture around every command (the Aftermath analog,
+    # app/crashdump.py): an unhandled failure persists a JSON report of the
+    # session/settings/device state before exiting.
+    from .crashdump import crash_guard
+    with crash_guard():
+        return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,12 @@ reference's watch list, :1416-1461); rendering stops at SqrtNumSamples^2
 samples unless benchmark mode is on (:2026-2028). `render_raster_frame`
 renders one forward-shaded frame instead (EnableRayTracing=false). Each pass
 runs in a scope of the session's `profiler`.
+
+The frame state is {accum, sample_idx}: `checkpoint_state` reads it back to
+the host and `restore_state` resumes from it (a progressive render resumes
+where it stopped). `display_thumbnail` is the interactive viewer's small
+tone-mapped preview, made on the session's device. `rebuild_step` is the hot
+reload hook (app/hotreload.py).
 """
 
 import numpy as np
@@ -16,11 +22,12 @@ import torch
 
 from ..accel.bvh import build_bvh_for_scene
 from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings, Scenes
+from ..core.constants import FP16Scale
+from ..core.math3 import div
 from ..render.camera import FirstPersonCamera
 from ..render.clusters import build_cluster_masks, froxel_bounding_spheres
-from ..render.integrator import (FrameConstants, _make_alpha_test,
-                                 render_sample)
-from ..render.postfx import post_process
+from ..render.integrator import FrameConstants, _make_alpha_test
+from ..render.postfx import post_process, tone_map_filmic_alu
 from ..render.raster import forward_render
 from ..render.shadows import (convert_depth_maps, filter_moment_maps,
                               prepare_cascades, prepare_spot_shadows,
@@ -101,7 +108,14 @@ class RenderSession:
 
         self.sample_idx = 0
         self._last_restart_key = None
+        self._thumb_index = None
         self.reset_accumulation()
+        self._render_sample = _resolve_render_sample()
+
+        # the crash guard of the CLI (app/crashdump.py) reports the session
+        # it finds in this registry
+        from .crashdump import register_session
+        register_session(self)
 
     def _update_sky(self):
         s = self.settings
@@ -132,15 +146,26 @@ class RenderSession:
             curr_sample_idx=int(sample_idx),
         ).to(self.device)
 
+    def _restart_key(self):
+        return (self.settings.restart_key(), self.camera.state_tuple(),
+                self.width, self.height)
+
     def update(self):
         """Per-frame update: sky rebuild + restart detection
         (DXRPathTracer::Update, :1338-1461)."""
         self._update_sky()
-        key = (self.settings.restart_key(), self.camera.state_tuple(),
-               self.width, self.height)
+        key = self._restart_key()
         if key != self._last_restart_key or self.settings.always_reset_path_trace:
             self._last_restart_key = key
             self.reset_accumulation()
+
+    def rebuild_step(self):
+        """Hot-reload hook: take the per-sample render from the modules as
+        they are now, then restart the progressive accumulation (the
+        reference re-creates its PSOs after a shader reload, App.cpp:231-237,
+        and the path trace restarts)."""
+        self._render_sample = _resolve_render_sample()
+        self.reset_accumulation()
 
     def reset_accumulation(self):
         self._accum = torch.zeros((self.height, self.width, 3),
@@ -160,6 +185,23 @@ class RenderSession:
         """The running-mean image (height, width, 3) f32."""
         return self._accum
 
+    @accum.setter
+    def accum(self, img: torch.Tensor):
+        """Replace the running mean (the viewer shows a raster frame through
+        it): a (height, width, 3) f32 tensor on the session's device."""
+        want = (self.height, self.width, 3)
+        if (not isinstance(img, torch.Tensor) or tuple(img.shape) != want
+                or img.dtype != torch.float32):
+            raise ValueError(f"accum: want a {want} float32 tensor, got "
+                             f"{getattr(img, 'dtype', type(img).__name__)} "
+                             f"{tuple(getattr(img, 'shape', ()))}")
+        dev = self.device
+        if img.device.type != dev.type or (dev.index is not None
+                                           and img.device.index != dev.index):
+            raise ValueError(f"accum: the tensor is on {img.device}, the "
+                             f"session on {dev}")
+        self._accum = img
+
     @property
     def done(self) -> bool:
         if self.settings.benchmark_mode:
@@ -168,9 +210,9 @@ class RenderSession:
 
     def _step(self):
         frame = self.frame_constants(self.sample_idx)
-        self._accum = render_sample(self.scene, self.bvh, self.bvh_ray,
-                                    self.sky_cube, self.settings, frame,
-                                    self.width, self.height, self._accum)
+        self._accum = self._render_sample(
+            self.scene, self.bvh, self.bvh_ray, self.sky_cube, self.settings,
+            frame, self.width, self.height, self._accum)
         self.sample_idx += 1
 
     def render_frame(self, force: bool = False) -> bool:
@@ -190,6 +232,37 @@ class RenderSession:
         s = self.settings
         return post_process(self.accum, s.exposure, s.bloom_exposure,
                             s.bloom_magnitude, s.bloom_blur_sigma)
+
+    def display_thumbnail(self, cols: int, rows: int) -> torch.Tensor:
+        """The interactive viewer's preview, (rows, cols, 3) uint8 on the
+        session's device: a strided subsample of the accumulation, exposed
+        and tone-mapped (no bloom, which needs the full frame), so the
+        present reads back ~40 KB, not the HDR frame."""
+        if self._thumb_index is None or self._thumb_index[0] != (cols, rows):
+            ys = np.linspace(0, self.height - 1, rows).astype(np.int32)
+            xs = np.linspace(0, self.width - 1, cols).astype(np.int32)
+            self._thumb_index = ((cols, rows),
+                                 torch.from_numpy(ys).long().to(self.device),
+                                 torch.from_numpy(xs).long().to(self.device))
+        _, ys, xs = self._thumb_index
+        small = self._accum[ys][:, xs]
+        disp = tone_map_filmic_alu(
+            div(small * (2.0 ** self.settings.exposure), FP16Scale))
+        return torch.clamp(disp * 255.0, 0.0, 255.0).to(torch.uint8)
+
+    def checkpoint_state(self) -> dict:
+        """The progressive render's state, on the host: {accum (H, W, 3)
+        f32 numpy, sample_idx}."""
+        return {"accum": self._accum.cpu().numpy().copy(),
+                "sample_idx": self.sample_idx}
+
+    def restore_state(self, state: dict):
+        """Resume from `checkpoint_state()`'s dict (this package's or the
+        JAX package's): the next `update()` keeps the accumulation."""
+        self.accum = torch.from_numpy(
+            np.array(state["accum"], np.float32)).to(self.device)
+        self.sample_idx = int(state["sample_idx"])
+        self._last_restart_key = self._restart_key()
 
     def render_to_completion(self, max_samples: int | None = None):
         """Render samples until `max_samples` (default SqrtNumSamples^2) are
@@ -272,3 +345,10 @@ class RenderSession:
                 lightmap_uvs=lightmap_uvs, sun_shadow_pcf=sun_shadow_pcf,
                 spot_shadow_pcf=spot_shadow_pcf)
         return img
+
+
+def _resolve_render_sample():
+    """The integrator's `render_sample` as the module holds it now (after a
+    hot reload, the reloaded one)."""
+    from ..render.integrator import render_sample
+    return render_sample

@@ -295,7 +295,7 @@ def test_animated_frame_matches_jax(jax_ref, name):
     assert np.isfinite(img).all() and ref.max() > 0 and err <= 1e-4
 
 
-def test_animate_cli_renders_distinct_finite_frames(tmp_path):
+def test_animate_cli_renders_distinct_finite_frames(tmp_path, monkeypatch):
     from PIL import Image
 
     from dxrpathtracer_tpu_torch.app.cli import main
@@ -310,6 +310,7 @@ def test_animate_cli_renders_distinct_finite_frames(tmp_path):
     assert not np.allclose(f0, f1)   # the scene visibly turned
     assert gif.exists()
     if not torch.cuda.is_available():   # without --device cpu it raises
+        monkeypatch.setenv("DXRPT_CRASH_DUMP", str(tmp_path / "crash.json"))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["animate", "--current-scene", "BoxTest", "--width", "8",
                   "--height", "8", "--frames", "1", "--output",

@@ -344,9 +344,12 @@ def test_bake_command_writes_png_and_npz(tmp_path):
     np.testing.assert_array_equal(px, want)
 
 
-def test_session_and_command_default_to_the_card():
+def test_session_and_command_default_to_the_card(tmp_path, monkeypatch):
     """No `device`: the card. Where there is none, RenderSession and the
-    command raise instead of running on the CPU."""
+    command raise instead of running on the CPU (and the command's crash
+    guard writes its dump)."""
+    dump = tmp_path / "crash.json"
+    monkeypatch.setenv("DXRPT_CRASH_DUMP", str(dump))
     settings = AppSettings(current_scene=Scenes.BoxTest)
     if torch.cuda.is_available():
         sess = RenderSession(settings, 8, 8)
@@ -358,3 +361,4 @@ def test_session_and_command_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["bake", "--current-scene", "BoxTest", "--resolution", "8",
                   "--samples", "1", "--atlas", "pair"])
+    assert dump.exists()

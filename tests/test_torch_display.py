@@ -146,6 +146,7 @@ def test_render_command_raises_for_raster_and_without_card(tmp_path,
     in path-tracing and in raster mode (an unknown shadow mode is refused
     by the parser)."""
     out = str(tmp_path / "x.png")
+    monkeypatch.setenv("DXRPT_CRASH_DUMP", str(tmp_path / "crash.json"))
     with pytest.raises(SystemExit):
         cli.main(["render", "--current-scene", "BoxTest", "--width", "8",
                   "--height", "8", "--output", out, "--device", "cpu",
@@ -156,6 +157,7 @@ def test_render_command_raises_for_raster_and_without_card(tmp_path,
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["render", "--current-scene", "BoxTest", "--width", "8",
                       "--height", "8", "--output", out, *extra])
+    assert (tmp_path / "crash.json").exists()
 
 
 def test_bake_writes_exr(tmp_path):

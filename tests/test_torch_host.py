@@ -103,8 +103,9 @@ def test_sky_cache_matches(sun, albedo, turbidity):
 
 def test_renders_with_jax_blocked(tmp_path):
     """`import dxrpathtracer_tpu_torch`, every module of the port, a BoxTest
-    frame, a tiny BoxTest bake, a 16x16 `animate` frame and the import of a
-    written FBX with every import of jax made to fail."""
+    frame, a tiny BoxTest bake, a 16x16 `animate` frame, the import of a
+    written FBX and a scripted 16x16 `interactive` session with every
+    import of jax made to fail."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -122,6 +123,8 @@ def test_renders_with_jax_blocked(tmp_path):
         "from dxrpathtracer_tpu_torch.accel import device_build\n"
         "from dxrpathtracer_tpu_torch.scene import animate, cache, fbx\n"
         "from dxrpathtracer_tpu_torch.tools import fbx_cases\n"
+        "from dxrpathtracer_tpu_torch.app import crashdump, hotreload,"
+        " interactive\n"
         "from dxrpathtracer_tpu_torch.app.session import RenderSession\n"
         "from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes\n"
         "s = RenderSession(AppSettings(current_scene=Scenes.BoxTest), 16, 16,"
@@ -154,6 +157,8 @@ def test_renders_with_jax_blocked(tmp_path):
         " np.full((2, 2, 4), 200, np.uint8), srgb=True)\n"
         "sc, _ = load_scene(Scenes.WhiteFurnace, strict=True, asset_root=out)\n"
         "assert sc.num_triangles == 2 and sc.num_lights == 1\n"
+        "cli.main(['interactive', '--current-scene', 'BoxTest', '--width',"
+        " '16', '--height', '16', '--script', 'w:1,m:1', '--device', 'cpu'])\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " m.split('.')[0] in"
         " ('jax', 'jaxlib', 'dxrpathtracer_tpu')]\n"
