@@ -14,20 +14,25 @@ shadows by rays or cascaded depth maps, and the raster commands), scene
 import (SponzaAlpha-checker written as an FBX with DDS textures and
 imported through the scene cache), dynamic geometry (the `animate`
 flow: the stand-in rotated and its W8 table rebuilt on the card every
-frame) and the interactive viewer (app/interactive.py: a scripted session
+frame), the interactive viewer (app/interactive.py: a scripted session
 on the stand-in at 1080p with its raster toggle, the bake window, scene
-switches, checkpoints, hot reload and crash dumps). Phases, each fatal on
-failure:
+switches, checkpoints, hot reload and crash dumps) and the traversal
+engines the default settings route through (packets for depth-1 rays, the
+sun-space grid for sun shadows, the dense-proxy and AABB-cut screens in
+front of the per-ray walks). Phases, each fatal on failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
   2. build: compiles the traversal kernel (csrc/traverse.cu), the row-gather
-     kernel (csrc/gather.cu) and the native SAH and morton builders from the
-     checkout, all at once, with the seconds each took; for each (width, first_hit, alpha)
-     instantiation of the traversal kernel (eight), ptxas' registers, stack
-     frame and spills and the warps one SM holds at once (the persistent
-     grid); the opaque W32 instantiations must have no stack frame and no
-     spills;
+     kernel (csrc/gather.cu), the engines' kernels (csrc/packet.cu,
+     csrc/sungrid.cu, csrc/screen.cu) and the native SAH and morton
+     builders from the checkout, all at once, with the seconds each took;
+     for each (width, first_hit, alpha) instantiation of the traversal
+     kernel (eight), ptxas' registers, stack frame and spills and the warps
+     one SM holds at once (the persistent grid); the opaque W32
+     instantiations must have no stack frame and no spills; the same ptxas
+     figures of the five engine kernels (packet closest and any, the grid
+     walk, the proxy and cut screens);
   3. traversal kernel against plain: the kernel and its plain torch version,
      both on the card, (a) on the five ray classes of one plain-route 1080p
      sample (depth-1 closest on W8, depth-1 sun on W8, depth-2 closest, sun
@@ -49,11 +54,38 @@ failure:
      device (core/math3.div, the port's rule): the lanes that differ at
      each step; with the tensor divisor no step may differ, nor may
      raygen's rays, card against CPU;
-  4. frame main path: RenderSession on the card; init and first-frame
-     seconds, median ms/frame over 10 frames, Mrays/s by bench.py's formula
-     W*H*(1+(L-1)*2)/dt; the accumulation must be finite, the traversal
-     kernel must have launched 5 times and the gather kernel at least once
-     per frame;
+  4. frame main path: RenderSession on the card with the default settings
+     (the engines on); init and first-frame seconds, median ms/frame over
+     10 frames, Mrays/s by bench.py's formula W*H*(1+(L-1)*2)/dt; the
+     accumulation must be finite; per frame the traversal kernel must have
+     launched twice (depth-2 closest and terminal), the packet kernel once
+     closest and once any hit (depth 1), the grid and the proxy once each
+     (depth-2 sun, terminal), the cut never (its probe gates it off on the
+     stand-in), and the gather kernel at least once;
+  E1. engine classes, kernels against plain: the calls of one sample of
+     that session recorded as the integrator makes them (depth-1 closest
+     and sun in packets, depth-2 sun in the grid, the proxy-screened
+     terminal rays, the depth-2 closest rays): each engine kernel against
+     its plain version on the card, 0 lanes that differ in any bit; the
+     packets against the per-ray kernel (t on every lane, the lanes with
+     another t, which may only be nearer, and with another triangle at
+     equal t; any-hit visibility, which may only be more occluded); the
+     grid and proxy-screened visibility against the per-ray any hit, the
+     same rule; the cut built un-gated on the depth-2 closest and terminal
+     classes (cut-screened hits equal to unscreened); the proxy on the
+     depth-2 sun class too; the gated cut on the classes of one 1080p
+     BoxTest sample with the packets off (camera rays, depth-2 closest,
+     the first per-ray shadow request): bit-equal, screened equal to
+     unscreened, and some camera rays must be cleared; each with kernel
+     and plain ms, its visits or tests and its bound; the probe fraction
+     of every scene the script builds (BoxTest >= 0.10 > the stand-ins');
+  E2. engines A/B: 10 timed frames after a first per configuration, the
+     settings switched on that session: the stand-in with the engines on
+     (the defaults) and off (the five fields), and with each of packets,
+     grid, proxy and cut off alone; the SunTemple stand-in on and off;
+     BoxTest on (its cut gated on) and with enable_clear_cut off: ms/frame,
+     spread, launches per frame by kernel; every image within rel-RMSE
+     1e-4 of its scene's engines-on image; the grid's host build seconds;
   5. same frame, kernel against plain: one 240x135 sample on the card and
      on the CPU; relative RMSE <= 1e-4;
   A. alpha ray classes, kernel against plain: on the SponzaAlpha-checker
@@ -66,7 +98,11 @@ failure:
      max_any_hit_path_length 1 and at 3 (every ray alpha-tested), 10 frames
      each after a first: median ms/frame with the spread, Mrays/s by
      bench.py's formula (which counts no spot rays), traversal launches per
-     frame by instantiation; the accumulation must be finite;
+     frame by instantiation; the accumulation must be finite; per frame, at
+     1: 6 traversal launches (the depth-1 rays alpha-tested; the depth-2
+     closest, spot and terminal opaque), the grid once (depth-2 sun) and
+     the proxy twice (depth-2 spot and terminal); at 3: 7 traversal
+     launches and no engine (every ray alpha-tested);
   C. same alpha frame, kernels against plain: one 240x135 sample on the
      card and on the CPU, every traversal call's rays and results recorded.
      At the reference's max_any_hit_path_length 1: relative RMSE <= 1e-4.
@@ -90,7 +126,11 @@ failure:
      Mrays/s as covered*(1+(L-1)*2)/dt, traversal and gather launches per
      step (both > 0), peak device memory, and the ms of the median, guided
      and learned denoisers on the 4096^2 lightmap; the accumulation and
-     every denoised map must be finite;
+     every denoised map must be finite; per step the grid and the proxy
+     must launch, the packets and the cut not; then E2's bake: 3 steps
+     with the grid and proxy (the defaults) and 3 without, each from an
+     empty accumulation: s/step, launches, the accumulations equal within
+     rel-RMSE 1e-4;
   7. row gather against plain: kernel, plain (`table[idx.long()]`) and
      torch.index_select, bit-equal, timed with CUDA events on (a) the TPU
      microbenchmark's shapes (32768 rows, 2^20 indices, width 32 and 128),
@@ -99,6 +139,10 @@ failure:
      map's gathers at 4096^2; each with M rows/s and its bound;
   8. same bake, kernels against plain: BoxTest at 64x64, 2 steps, on the
      card and on the CPU; relative RMSE <= 1e-4 and validCount equal.
+  E3. engines card vs CPU: one engines-on BoxTest frame at 256x128 (packet
+     tiles, the cut gated on) on the card and on the CPU: rel-RMSE <=
+     1e-4, each engine reached on both routes (launches on the card, the
+     plain versions' calls on the CPU);
   R1. raster frame main path (EnableRayTracing=false, the reference's
      defaults: MSAA4x, cluster mode 3): the opaque stand-in at 1080p with
      sun shadow rays; median ms/frame over 10 frames after the first with
@@ -136,16 +180,21 @@ failure:
      written; RenderSession(asset_root=...) at 1080p, path length 3: the
      seven alpha classes kernel against plain (max_any_hit_path_length 3),
      then 10 frames after a first at the reference's
-     max_any_hit_path_length 1, ms/frame; the same frame at 240x135 on the
+     max_any_hit_path_length 1, ms/frame, launches per frame as phase B's
+     at 1; the same frame at 240x135 on the
      card and the CPU, rel-RMSE <= 1e-4;
   AN. dynamic geometry: the `animate` flow on the stand-in at 1080p with
      the command's defaults (24 frames, 4 samples each): per frame, rotate,
      device-build and render ms (CUDA events); the device table at two
      frames bit-identical to the native morton build and to
      build_table_numpy of the same rotated vertices on the host; the five
-     classes on the last frame's W8 table, kernel against plain; one
-     animated frame at 240x135 on the card and the CPU: tables bit-equal,
-     rel-RMSE <= 1e-4; `python -m dxrpathtracer_tpu_torch animate` at
+     classes on the last frame's W8 table, kernel against plain; per
+     sample three traversal launches and one packet closest and any hit,
+     and no grid, proxy or cut (the moved geometry drops them); E4: the
+     last frame's geometry, one sample with the engine fields on and one
+     with them off, rel-RMSE <= 1e-4; one animated frame at 240x135 on the
+     card and the CPU: tables bit-equal, rel-RMSE <= 1e-4;
+     `python -m dxrpathtracer_tpu_torch animate` at
      480x270, 4 frames, into chiprun_out/animate/ (a GIF where PIL is
      installed).
   I. the interactive viewer, its terminal frames presented into a buffer
@@ -155,8 +204,9 @@ failure:
        raster frames at the reference's defaults), `m`, `p`: the sample
        index after every step as the CPU tests assert it, median path and
        raster ms/frame (the app's frame times: each frame synchronises),
-       present ms, launches per frame (path >= 5 traversals and >= 1
-       gather, raster >= 2 and >= 1); every thumbnail the pipelined present
+       present ms, launches per frame (path >= 2 traversals, >= 1
+       packet closest and any hit, grid and proxy, >= 1 gather; raster >= 2
+       and >= 1); every thumbnail the pipelined present
        drew byte-equal to a synchronous display_thumbnail of the same
        accumulation; the screenshot in chiprun_out/interactive/;
      I2. scene key `1` (BoxTest), then `b`: atlas, texel-map and
@@ -208,11 +258,24 @@ f32 operations and TAP_BYTES (four channel-0 texels) each. The plain walk
 steps the active rays only (an inactive ray keeps t_max and tri id -1
 without a step), so its time counts no inactive lane.
 
+An engine kernel moves its rays (a packet or walk ray as the traversal
+class's 45 B in and 16 B out; a grid ray 33 B in, 4 B of index and 4 B
+out; a screened ray 33 B in and 1 B out) and, for packets and the grid,
+the distinct 512 B records its walk touches, or the screen's columns; its
+operations are what this run's data needs: SLAB_OPS per filled slot the
+packet's mask allows and live ray (active, and in any-hit mode without a
+hit yet) of each internal visit and MT_OPS per filled triangle and live
+ray of each leaf visit; GRID_RAY_OPS per active grid ray, GRID_STEP_OPS per
+record visit and PROXY_OPS per filled triangle of each tested record up to
+the first blocking one; PROXY_OPS or CUT_OPS per column a lane tests up to
+its first blocking triangle or overlapped box.
+
 The line before the last is {"kernels": [...]}: one entry per traversal
-instantiation and one for the gather kernel, whose `launches` count the
-main paths' runs (the opaque frame, the alpha frames, the bake, the raster
-frames of R1 and R2, the imported frames of F, the animation of AN and the
-viewer of I1-I3) and
+instantiation, one for the gather kernel and one for each engine kernel
+(packet_closest, packet_any, sun_any_hit, proxy_blocked, cut_clear), whose
+`launches` count the main paths' runs (the opaque frame, the alpha frames,
+the bake, the raster frames of R1 and R2, the imported frames of F, the
+animation of AN, the viewer of I1-I3, and E2's frames and bake steps) and
 every one of which must be > 0; the last is {"ok": true, "device": {...}}.
 Full results also go to chiprun_out/chip_smoke.json. Exits non-zero, with
 no result line, when there is no CUDA device or any phase fails. Imports no
@@ -236,6 +299,19 @@ TRAVERSE_SOURCE = "dxrpathtracer_tpu_torch/csrc/traverse.cu"
 TRAVERSE_REPLACES = "dxrpathtracer_tpu/accel/pallas_body.py:52"
 GATHER_SOURCE = "dxrpathtracer_tpu_torch/csrc/gather.cu"
 GATHER_REPLACES = "tools/microbench_dma_gather.py:28"
+# the traversal engines' kernels: (source, the JAX function it replaces)
+ENGINE_KERNELS = {
+    "packet_closest": ("dxrpathtracer_tpu_torch/csrc/packet.cu",
+                       "dxrpathtracer_tpu/accel/packet.py:58"),
+    "packet_any": ("dxrpathtracer_tpu_torch/csrc/packet.cu",
+                   "dxrpathtracer_tpu/accel/packet.py:58"),
+    "sun_any_hit": ("dxrpathtracer_tpu_torch/csrc/sungrid.cu",
+                    "dxrpathtracer_tpu/accel/sunspace.py:267"),
+    "proxy_blocked": ("dxrpathtracer_tpu_torch/csrc/screen.cu",
+                      "dxrpathtracer_tpu/accel/proxy.py:154"),
+    "cut_clear": ("dxrpathtracer_tpu_torch/csrc/screen.cu",
+                  "dxrpathtracer_tpu/accel/proxy.py:346"),
+}
 # Where and at what size the phases run: the card at full size. (A rehearsal
 # on the CPU may shrink them; the card's run never does.)
 DEVICE = "cuda"
@@ -263,6 +339,23 @@ ROW_BYTES = 512    # one table record
 # four channel-0 texels.
 TAP_OPS = 34
 TAP_BYTES = 16
+# The engines' kernels: a screen's ray (origin, direction, t_min, t_max,
+# active: 33 B) and verdict (1 B); the proxy's Moller-Trumbore without the
+# nearest key (54 operations) and the cut's slab test with slack (29: 12
+# for the six slab distances, 12 min/max, 3 for the slack, 2 for the
+# compare); a grid step's three tail comparisons, a grid ray's 12 + 4 B
+# (projection and index read, its 9 products and 6 sums, the floors and
+# clips: 25 operations) and its 4 B of visibility.
+SCREEN_RAY_BYTES = 34
+PROXY_OPS = 54
+CUT_OPS = 29
+GRID_RAY_BYTES = 41
+GRID_RAY_OPS = 25
+GRID_STEP_OPS = 3
+E_FRAMES = 10           # E2: frames after the first, per configuration
+E3_SIZE = (256, 128)    # E3: BoxTest card vs CPU, a packet-tileable size
+ENGINE_FIELDS = ("enable_packet_traversal", "enable_sunspace_shadows",
+                 "enable_sw_raster", "enable_dense_proxy", "enable_clear_cut")
 PLAIN_CHUNK = 1 << 21  # rays per plain walk: its lockstep state stays small
 
 
@@ -313,7 +406,8 @@ def phase_build():
     """Builds the four native libraries at once (one compiler each)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from dxrpathtracer_tpu_torch.accel import bvh, gather, traverse
+    from dxrpathtracer_tpu_torch.accel import (bvh, gather, packet, proxy,
+                                               sunspace, traverse)
 
     def timed(fn):
         t0 = time.time()
@@ -322,6 +416,9 @@ def phase_build():
 
     jobs = {"traverse_s": traverse.kernel_library,
             "gather_s": gather.kernel_library,
+            "packet_s": packet.kernel_library,
+            "sungrid_s": sunspace.kernel_library,
+            "screen_s": proxy.kernel_library,
             "sah_builder_s": bvh.sah_library,
             "lbvh_builder_s": bvh.lbvh_library}
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -329,7 +426,9 @@ def phase_build():
         secs = {k: f.result() for k, f in futures.items()}
     log(f"build (in parallel): traverse.cu (nvcc sm_90a) "
         f"{secs['traverse_s']:.2f} s, gather.cu (nvcc sm_90a) "
-        f"{secs['gather_s']:.2f} s, sah_builder.cpp (g++) "
+        f"{secs['gather_s']:.2f} s, packet.cu {secs['packet_s']:.2f} s, "
+        f"sungrid.cu {secs['sungrid_s']:.2f} s, screen.cu "
+        f"{secs['screen_s']:.2f} s, sah_builder.cpp (g++) "
         f"{secs['sah_builder_s']:.2f} s, lbvh_builder.cpp (g++) "
         f"{secs['lbvh_builder_s']:.2f} s")
     for line in gather.BUILD_LOG.splitlines():
@@ -350,7 +449,48 @@ def phase_build():
                          f"{sorted(kernels)}")
     secs["traverse_kernels"] = {instance_name(k): row
                                 for k, row in kernels.items()}
+    engines = {}
+    for lib in (packet, sunspace, proxy):
+        for name, row in ptxas_entries(lib.BUILD_LOG).items():
+            engines[name] = row
+            log(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
+    want = {"packet_closest", "packet_any", "sun_any_hit", "proxy_blocked",
+            "cut_clear"}
+    if set(engines) != want:
+        raise SystemExit(f"chip_smoke: ptxas reported engine kernels "
+                         f"{sorted(engines)}, want {sorted(want)}")
+    secs["engine_kernels"] = engines
     return secs
+
+
+def ptxas_entries(log_text):
+    """{kernel: registers, stack frame and spills} of the engines' kernels
+    in nvcc's -Xptxas -v output (packet_kernel<false/true>, sungrid_kernel,
+    proxy_kernel, cut_kernel)."""
+    import re
+    names = {"packet_kernelILb0E": "packet_closest",
+             "packet_kernelILb1E": "packet_any",
+             "sungrid_kernel": "sun_any_hit", "proxy_kernel": "proxy_blocked",
+             "cut_kernel": "cut_clear"}
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((v for k, v in names.items() if k in line), None)
+            if cur is not None:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_frame_bytes=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 # (width, first_hit, alpha) of the traversal kernel's instantiations
@@ -760,11 +900,15 @@ def phase_main_path(smi):
     if tuple(accum.shape) != (h, w, 3) or not bool(accum.isfinite().all()):
         raise SystemExit("chip_smoke: the accumulation is not a finite "
                          f"{h}x{w}x3 image")
-    if (launches["traverse"] < 5 * (frames + 1)
-            or launches["row_gather"] < frames + 1):
+    # the engines' route (the defaults): depth-1 closest and sun in packets,
+    # depth-2 sun in the grid, the terminal rays proxy-screened; the cut
+    # stays gated off on the stand-in
+    check_launches("main path", launches, frames + 1, traverse=2,
+                   packet_closest=1, packet_any=1, sun_any_hit=1,
+                   proxy_blocked=1, cut_clear=0)
+    if launches["row_gather"] < frames + 1:
         raise SystemExit(f"chip_smoke: {launches} kernel launches in "
-                         f"{frames + 1} frames, want >= 5 traversals and "
-                         f">= 1 gather per frame")
+                         f"{frames + 1} frames, want >= 1 gather per frame")
     med = statistics.median(dts)
     spread = (max(dts) - min(dts)) / med * 100.0
     mrays = w * h * (1 + (settings.max_path_length - 1) * 2) / med / 1e6
@@ -782,20 +926,40 @@ def phase_main_path(smi):
 
 
 def reset_launches():
-    from dxrpathtracer_tpu_torch.accel import gather, traverse
+    from dxrpathtracer_tpu_torch.accel import (gather, packet, proxy,
+                                               sunspace, traverse)
     gather.KERNEL_LAUNCHES = 0
     traverse.KERNEL_LAUNCHES.clear()
+    packet.KERNEL_LAUNCHES.update(closest=0, any=0)
+    sunspace.KERNEL_LAUNCHES = 0
+    proxy.KERNEL_LAUNCHES.update(proxy_blocked=0, cut_clear=0)
 
 
 def read_launches():
     """The kernel launches since reset_launches: in all and by traversal
-    instantiation."""
-    from dxrpathtracer_tpu_torch.accel import gather, traverse
+    instantiation, and each engine kernel's."""
+    from dxrpathtracer_tpu_torch.accel import (gather, packet, proxy,
+                                               sunspace, traverse)
     return {"traverse": sum(traverse.KERNEL_LAUNCHES.values()),
             "row_gather": gather.KERNEL_LAUNCHES,
             "traverse_by_instance": {
                 instance_name(k): v
-                for k, v in sorted(traverse.KERNEL_LAUNCHES.items())}}
+                for k, v in sorted(traverse.KERNEL_LAUNCHES.items())},
+            "packet_closest": packet.KERNEL_LAUNCHES["closest"],
+            "packet_any": packet.KERNEL_LAUNCHES["any"],
+            "sun_any_hit": sunspace.KERNEL_LAUNCHES,
+            "proxy_blocked": proxy.KERNEL_LAUNCHES["proxy_blocked"],
+            "cut_clear": proxy.KERNEL_LAUNCHES["cut_clear"]}
+
+
+def check_launches(label, launches, frames, traverse, **engines):
+    """Fails unless `frames` frames launched exactly `traverse` per-ray
+    traversals and the given launches of each engine kernel per frame."""
+    want = {"traverse": traverse, **engines}
+    got = {k: launches[k] for k in want}
+    if any(got[k] != v * frames for k, v in want.items()):
+        raise SystemExit(f"chip_smoke: {label}: launches {got} in {frames} "
+                         f"frames, want per frame {want}")
 
 
 def timed_frames(sess, frames):
@@ -870,9 +1034,19 @@ def phase_alpha(smi):
             f"formula: no spot rays counted); traversal launches per frame "
             f"{per_frame}, gather launches {launches['row_gather']}; accum "
             f"mean {float(accum.mean()):.4f} [{smi}]")
-        if launches["traverse"] != 7 * (frames + 1):
-            raise SystemExit(f"chip_smoke: {launches} traversal launches in "
-                             f"{frames + 1} alpha frames, want 7 per frame")
+        if any_hit_len == 1:
+            # depth-1 rays alpha-tested (per ray); depth 2 opaque: its sun
+            # in the grid, its spot and terminal rays proxy-screened
+            check_launches("alpha frame, max_any_hit 1", launches,
+                           frames + 1, traverse=6, packet_closest=0,
+                           packet_any=0, sun_any_hit=1, proxy_blocked=2,
+                           cut_clear=0)
+        else:
+            # every ray alpha-tested: no engine sees one
+            check_launches("alpha frame, max_any_hit 3", launches,
+                           frames + 1, traverse=7, packet_closest=0,
+                           packet_any=0, sun_any_hit=0, proxy_blocked=0,
+                           cut_clear=0)
     out = {"width": w, "height": h, "path_length": settings.max_path_length,
            "triangles": sess.scene.num_triangles,
            "spot_lights": scene.num_lights,
@@ -1162,10 +1336,16 @@ def phase_bake(smi):
         dts.append(time.time() - t0)
     launches = read_launches()
     per_step = {k: launches[k] / (steps + 1)
-                for k in ("traverse", "row_gather")}
+                for k in ("traverse", "row_gather", "sun_any_hit",
+                          "proxy_blocked")}
     if not bool(baker.accum.isfinite().all()):
         raise SystemExit("chip_smoke: the bake accumulation is not finite")
-    if min(launches["traverse"], launches["row_gather"]) == 0:
+    # every sun ray in the grid, opaque shadow rays proxy-screened; no
+    # packets (hemisphere rays) and no cut
+    if (min(launches["traverse"], launches["row_gather"],
+            launches["sun_any_hit"], launches["proxy_blocked"]) == 0
+            or launches["packet_closest"] + launches["packet_any"]
+            + launches["cut_clear"]):
         raise SystemExit(f"chip_smoke: bake launches {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(dts)
@@ -1773,10 +1953,11 @@ def phase_fbx(smi):
         sess.settings = sess.settings.replace(max_any_hit_path_length=1)
         first_s, dts, launches = timed_frames(sess, frames)
         accum = sess.accum
-        if not bool(accum.isfinite().all()) or launches["traverse"] != \
-                7 * (frames + 1):
-            raise SystemExit(f"chip_smoke: F frame not finite or launches "
-                             f"{launches}")
+        if not bool(accum.isfinite().all()):
+            raise SystemExit("chip_smoke: F frame not finite")
+        check_launches("F frame", launches, frames + 1, traverse=6,
+                       packet_closest=0, packet_any=0, sun_any_hit=1,
+                       proxy_blocked=2, cut_clear=0)
         med = statistics.median(dts)
         spread = (max(dts) - min(dts)) / med * 100.0
         log(f"F frame (imported, 1080p, path length 3): init {init_s:.2f} s "
@@ -1881,10 +2062,14 @@ def phase_animate(smi):
         if f in ANIM_CHECK_FRAMES:
             tables[f] = (bvh.table.cpu(), [v.cpu().numpy() for v in verts])
     launches = read_launches()
-    if not bool(sess.accum.isfinite().all()) or launches["traverse"] != \
-            5 * ANIM_FRAMES * ANIM_SPP:
-        raise SystemExit(f"chip_smoke: animate frames not finite or "
-                         f"launches {launches}")
+    if not bool(sess.accum.isfinite().all()):
+        raise SystemExit("chip_smoke: animate frames not finite")
+    # moved geometry: no grid, proxy or cut; the packets walk the frame's
+    # table, the depth-2 rays walk it per ray
+    check_launches("animate", launches, ANIM_FRAMES * ANIM_SPP, traverse=3,
+                   packet_closest=1, packet_any=1, sun_any_hit=0,
+                   proxy_blocked=0, cut_clear=0)
+    e4 = animated_engines_ab(sess)
     checks = {}
     for f, (table, verts) in tables.items():
         t0 = time.time()
@@ -1955,6 +2140,7 @@ def phase_animate(smi):
            "session_init_s": init_s, "plan_s": plan_s, "steps_ms": steps,
            "median_ms": med, "kernel_launches": launches,
            "table_checks": checks, "same_frame_tables_equal": tables_equal,
+           "e4_engines_on_off": e4,
            "same_frame_rel_rmse": rel, "command_s": command_s,
            "pil_installed": pil, "card": smi}
     return out, classes, launches
@@ -2011,8 +2197,8 @@ class ViewerProbe:
             after = read_launches()
             self.frames.append({
                 "kind": kind, "ms": app.frame_times[-1] * 1e3,
-                "traverse": after["traverse"] - before["traverse"],
-                "row_gather": after["row_gather"] - before["row_gather"]})
+                **{k: after[k] - before[k] for k in (
+                    "traverse", "row_gather", *ENGINE_KERNELS)}})
             if kind != "bake":
                 cols = min(app.PRESENT_COLS, app.width)
                 rows = min(app.PRESENT_ROWS, app.height)
@@ -2148,8 +2334,12 @@ def phase_viewer(smi):
     path = probe.frame_stats("path", i1)
     raster = probe.frame_stats("raster", i1)
     for f in i1:
-        need = (5, 1) if f["kind"] == "path" else (2, 1)
-        if f["traverse"] < need[0] or f["row_gather"] < need[1]:
+        # path frames: two per-ray walks, two packet walks, the grid and
+        # the proxy (the engines' route); raster frames: rays only
+        need = ({"traverse": 2, "row_gather": 1, "packet_closest": 1,
+                 "packet_any": 1, "sun_any_hit": 1, "proxy_blocked": 1}
+                if f["kind"] == "path" else {"traverse": 2, "row_gather": 1})
+        if any(f[k] < v for k, v in need.items()):
             raise SystemExit(f"chip_smoke: viewer {f['kind']} frame "
                              f"launched {f}, want >= {need}")
     thumbs = probe.sync_thumbs[:sum(f["kind"] != "bake" for f in i1)]
@@ -2490,6 +2680,528 @@ def phase_interactive(smi):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# E: the traversal engines (packets, sun-space grid, dense proxy, AABB cut)
+# ---------------------------------------------------------------------------
+
+def engine_classes(sess):
+    """The engines' ray classes of one sample of `sess` (the 1080p stand-in
+    with the default settings), recorded as trace_paths makes its calls:
+    {name: (o, d, t_min, t_max, active)} for d1_closest (packets),
+    d1_sun (packets), d2_closest (per ray), d2_sun (grid) and d2_terminal
+    (proxy-screened)."""
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    calls = {}
+    names = {"packet_closest_hit": "d1_closest", "packet_any_hit": "d1_sun",
+             "closest_hit": "d2_closest", "sun_any_hit": "d2_sun",
+             "screened_any": "d2_terminal"}
+    saved = {k: getattr(it, k) for k in names}
+
+    def recorder(fn_name):
+        fn = saved[fn_name]
+
+        def record(*args, **kw):
+            rays = args[1:6]  # after the table, grid or walk
+            calls.setdefault(names[fn_name], tuple(
+                torch.as_tensor(x).contiguous() for x in rays))
+            return fn(*args, **kw)
+        return record
+
+    try:
+        for k in names:
+            setattr(it, k, recorder(k))
+        sess.reset_accumulation()
+        sess.render_frame()
+        sync()
+    finally:
+        for k, fn in saved.items():
+            setattr(it, k, fn)
+    if set(calls) != set(names.values()):
+        raise SystemExit(f"chip_smoke: E1 recorded classes {sorted(calls)}")
+    n = sess.width * sess.height
+    for name, rays in calls.items():
+        calls[name] = tuple(
+            x.expand(n).contiguous() if x.dim() == 0 else x for x in rays)
+    return calls
+
+
+def bits_differ(a, b):
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def engine_row(name, kernel, plain, nbytes, ops, extra):
+    """Times kernel() (5 launches after a warm-up) and plain() (once) with
+    CUDA events and their bound; logs and returns the row."""
+    kernel()
+    ms, _ = cuda_ms(kernel, repeat=5)
+    plain_ms, _ = cuda_ms(plain)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+           "library_ms": None, **extra}
+    log(f"E1 {name}: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in row.items()))
+    return row
+
+
+def cut_classes(sess):
+    """The cut's classes of one sample of `sess` (BoxTest with the default
+    settings, where the probe gates the cut on) with the packets off, so
+    that the cut screens the camera rays too: {name: (o, d, t_min, t_max,
+    active)} for d1_closest and d2_closest (the integrator's first two
+    closest-hit screens) and shadow (the first per-ray shadow request that
+    screened_any sends through it)."""
+    from dxrpathtracer_tpu_torch.accel import proxy
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    calls = {}
+    saved = (it.cut_clear, proxy.cut_clear, sess.settings)
+
+    def recorder(names, fn):
+        def record(cut, *rays):
+            name = names[min(len(names) - 1, sum(k in calls for k in names))]
+            calls.setdefault(name, tuple(
+                torch.as_tensor(x).contiguous() for x in rays))
+            return fn(cut, *rays)
+        return record
+
+    try:
+        it.cut_clear = recorder(("d1_closest", "d2_closest"), saved[0])
+        proxy.cut_clear = recorder(("shadow",), saved[1])
+        sess.settings = saved[2].replace(enable_packet_traversal=False)
+        sess.reset_accumulation()
+        sess.render_frame()
+        sync()
+    finally:
+        it.cut_clear, proxy.cut_clear, sess.settings = saved
+    if set(calls) != {"d1_closest", "d2_closest", "shadow"}:
+        raise SystemExit(f"chip_smoke: E1 BoxTest cut classes {sorted(calls)}")
+    for name, rays in calls.items():
+        n = rays[0].shape[0]
+        calls[name] = tuple(
+            x.expand(n).contiguous() if x.dim() == 0 else x for x in rays)
+    return calls
+
+
+def screen_row(name, sess, screen, obj, rays, closest):
+    """One screen kernel (proxy_blocked with the DenseProxy `obj`, or
+    cut_clear with the AABBCut `obj`) against its plain version on `rays`,
+    0 lanes that differ, with its times and bound; the screened result
+    against the unscreened per-ray walk of `sess` on every lane: proxy
+    visibility may only be more occluded, cut-screened hits (`closest`) or
+    visibility must be equal."""
+    from dxrpathtracer_tpu_torch.accel import proxy, traverse
+    o, d, tmin, tmax, act = rays
+    n = o.shape[0]
+    cols = obj.tris if screen == "proxy_blocked" else obj.boxes
+    plain_fn = (proxy.proxy_blocked_plain if screen == "proxy_blocked"
+                else proxy.cut_clear_plain)
+    stats = {}
+    ref = plain_fn(obj, *rays, stats=stats)
+    kern = lambda: proxy._launch(screen, cols, rays)  # noqa: E731
+    got = kern()
+    extra = {"rays": n, "active": int(act.sum()), "decided": int(got.sum()),
+             "mismatches_vs_plain": int((got != ref).sum()),
+             "max_abs_err": float((got.float() - ref.float()).abs().max()),
+             "column_tests": stats["tests"]}
+
+    def walk_any(*r):
+        return traverse.any_hit(sess.bvh_ray, *r)
+
+    if screen == "proxy_blocked":
+        screened = proxy.screened_any(walk_any, *rays, proxy=obj)
+        walk = walk_any(*rays)
+        extra["vis_differ_vs_per_ray"] = int((screened != walk).sum())
+        extra["vis_above_per_ray"] = int((screened > walk).sum())
+        bad = extra["vis_above_per_ray"]
+        ops = stats["tests"] * PROXY_OPS
+    elif closest:
+        full = traverse.closest_hit(sess.bvh_ray, *rays)
+        cut = traverse.closest_hit(sess.bvh_ray, o, d, tmin, tmax,
+                                   act & ~got)
+        bad = sum(bits_differ(getattr(cut, f), getattr(full, f))
+                  for f in ("t", "u", "v")) + int(
+                      (cut.tri_id != full.tri_id).sum())
+        extra["hits_differ_vs_unscreened"] = bad
+        ops = stats["tests"] * CUT_OPS
+    else:
+        screened = proxy.screened_any(walk_any, *rays, cut=obj)
+        bad = int((screened != walk_any(*rays)).sum())
+        extra["vis_differ_vs_per_ray"] = bad
+        ops = stats["tests"] * CUT_OPS
+    nbytes = n * SCREEN_RAY_BYTES + cols.numel() * 4
+    row = engine_row(f"{name} ({screen})", kern,
+                     lambda: plain_fn(obj, *rays), nbytes, ops, extra)
+    if extra["mismatches_vs_plain"] or bad:
+        raise SystemExit(f"chip_smoke: E1 {name}: {extra}")
+    return row
+
+
+def engine_session(scene):
+    """A 1080p session of `scene` with the default settings (the engines
+    on), as E1 and E2 drive it."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    t0 = time.time()
+    sess = RenderSession(AppSettings(
+        current_scene=getattr(Scenes, scene), benchmark_mode=True,
+        max_path_length=3), *FRAME_SIZE, device=DEVICE)
+    sync()
+    log(f"E {scene}: session init {time.time() - t0:.2f} s, cut "
+        f"{'on' if sess.cut is not None else 'off'} (probe "
+        f"{sess.cut_clear_fraction:.5f})")
+    return sess
+
+
+def phase_engine_classes(sess, box_sess, smi):
+    """E1: each engine kernel against its plain version on the card on the
+    classes of one 1080p stand-in sample in tile order, bit for bit, with
+    times and bounds; packets against the per-ray kernel (t, and the lanes
+    whose triangle differs at equal t); grid and screened visibility against
+    the per-ray any hit; the cut un-gated there, and gated on in the
+    classes of one 1080p sample of `box_sess` (BoxTest), where it must
+    clear lanes; every scene's probe fraction."""
+    from dxrpathtracer_tpu_torch.accel import (packet, proxy, sunspace,
+                                               traverse)
+    from dxrpathtracer_tpu_torch.app.settings import Scenes
+    from dxrpathtracer_tpu_torch.scene.registry import load_scene
+    from dxrpathtracer_tpu_torch.tools import alpha_cases
+
+    t0 = time.time()
+    classes = engine_classes(sess)
+    log(f"E1: classes recorded in {time.time() - t0:.2f} s; active lanes "
+        + ", ".join(f"{k} {int(v[4].sum())}" for k, v in classes.items()))
+    rows = {}
+    n = sess.width * sess.height
+
+    # packets: closest and any hit against the plain walk and the per-ray
+    # kernel on the W8 table
+    for name, first_hit in (("d1_closest", False), ("d1_sun", True)):
+        o, d, tmin, tmax, act = classes[name]
+        inv = traverse.safe_inv(d).contiguous()
+        kern = lambda: packet._launch_kernel(sess.bvh, o, d, inv, tmin,  # noqa: E731
+                                             tmax, act, first_hit)
+        stats = {}
+        ref = packet.packet_traverse_plain(sess.bvh, o, d, inv, tmin, tmax,
+                                           act, first_hit, stats)
+        got = kern()
+        walk = traverse._launch_kernel(sess.bvh, o, d, inv, tmin, tmax, act,
+                                       first_hit)
+        mism = sum(bits_differ(getattr(got, f), getattr(ref, f))
+                   for f in ("t", "u", "v")) + int(
+                       (got.tri_id != ref.tri_id).sum())
+        t_diff = got.t.view(torch.int32) != walk.t.view(torch.int32)
+        both = got.hit & ref.hit
+        extra = {"rays": n, "active": int(act.sum()),
+                 "mismatches_vs_plain": mism,
+                 "max_abs_err": max([0.0] + [
+                     float((getattr(got, f) - getattr(ref, f))[both].abs()
+                           .max()) for f in ("t", "u", "v")
+                     if bool(both.any())]),
+                 "internal_visits": stats["internal"],
+                 "leaf_visits": stats["leaf"],
+                 "slot_tests": stats["slot_tests"],
+                 "triangle_tests": stats["tri_tests"],
+                 "rows_touched": int(stats["touched"].sum())}
+        # Against the per-ray walk a packet may find a hit the walk's own
+        # slab test culls (a ray grazing a box face reaches a triangle edge
+        # the triangle test accepts, through a neighbour's descent): it may
+        # be nearer or occluded where the walk is not, never the reverse.
+        if first_hit:
+            vis_k = torch.where(act & got.hit, 0.0, 1.0)
+            vis_w = torch.where(act & walk.hit, 0.0, 1.0)
+            extra["vis_differ_vs_per_ray"] = int((vis_k != vis_w).sum())
+            extra["vis_above_per_ray"] = int((vis_k > vis_w).sum())
+            bad = mism or extra["vis_above_per_ray"]
+        else:
+            extra["t_differ_vs_per_ray"] = int(t_diff.sum())
+            extra["t_farther_than_per_ray"] = int(
+                (got.t[t_diff] > walk.t[t_diff]).sum())
+            extra["equal_t_other_triangle"] = int(
+                ((got.tri_id != walk.tri_id) & ~t_diff).sum())
+            bad = mism or extra["t_farther_than_per_ray"]
+        nbytes = n * (RAY_IN_BYTES + HIT_BYTES) + extra["rows_touched"] \
+            * ROW_BYTES
+        ops = stats["slot_tests"] * SLAB_OPS + stats["tri_tests"] * MT_OPS
+        rows[name] = engine_row(
+            f"{name} packets", kern,
+            lambda: packet.packet_traverse_plain(sess.bvh, o, d, inv, tmin,
+                                                 tmax, act, first_hit),
+            nbytes, ops, extra)
+        if bad:
+            raise SystemExit(f"chip_smoke: E1 {name}: {extra}")
+
+    # the grid on the depth-2 sun class
+    o, d, tmin, tmax, act = classes["d2_sun"]
+    grid = sess.update_sun_grid()
+    stats = {}
+    ref = sunspace.sun_any_hit_plain(grid, o, d, tmin, tmax, act, stats)
+    kern = lambda: sunspace._launch_kernel(grid, o, d, tmin, tmax, act)  # noqa: E731
+    got = kern()
+    walk = traverse.any_hit(sess.bvh_ray, o, d, tmin, tmax, act)
+    extra = {"rays": n, "active": int(act.sum()), "records": grid.num_rows,
+             "grid_build_s": sess.sun_grid_build_s,
+             "mismatches_vs_plain": int((got != ref).sum()),
+             "max_abs_err": float((got - ref).abs().max()),
+             "vis_differ_vs_per_ray": int((got != walk).sum()),
+             "vis_above_per_ray": int((got > walk).sum()),
+             "record_visits": stats["visits"],
+             "records_tested": stats["tested"],
+             "triangle_tests": stats["tri_tests"],
+             "rows_touched": int(stats["touched"].sum())}
+    nbytes = n * GRID_RAY_BYTES + extra["rows_touched"] * ROW_BYTES
+    ops = (int(act.sum()) * GRID_RAY_OPS + stats["visits"] * GRID_STEP_OPS
+           + stats["tri_tests"] * PROXY_OPS)
+    rows["d2_sun"] = engine_row(
+        "d2_sun grid", kern,
+        lambda: sunspace.sun_any_hit_plain(grid, o, d, tmin, tmax, act),
+        nbytes, ops, extra)
+    # as with packets, the grid may see an occluder that the walk's slab
+    # test culls, never miss one the walk finds
+    if extra["mismatches_vs_plain"] or extra["vis_above_per_ray"]:
+        raise SystemExit(f"chip_smoke: E1 d2_sun: {extra}")
+
+    # the screens: the proxy on the terminal and depth-2 sun classes, the
+    # cut (built un-gated: the probe keeps it off on the stand-in) on the
+    # depth-2 closest and terminal classes
+    ungated = proxy.build_aabb_cut(sess.scene_host.positions.numpy(),
+                                   sess.scene_host.tri_idx.numpy()).to(
+                                       sess.device)
+    for name, screen, cls in (("proxy_terminal", "proxy_blocked",
+                               "d2_terminal"),
+                              ("proxy_d2_sun", "proxy_blocked", "d2_sun"),
+                              ("cut_d2_closest", "cut_clear", "d2_closest"),
+                              ("cut_terminal", "cut_clear", "d2_terminal")):
+        obj = sess.proxy if screen == "proxy_blocked" else ungated
+        rows[name] = screen_row(name, sess, screen, obj, classes[cls],
+                                closest=cls == "d2_closest")
+
+    # the cut where the probe gates it on: the classes of one 1080p BoxTest
+    # sample. It must clear camera rays (most see the sky); the bounce and
+    # shadow rays start on a surface, inside the box that holds it, so it
+    # may clear none of them.
+    if box_sess.cut is None:
+        raise SystemExit(f"chip_smoke: E1 BoxTest: the cut is gated off "
+                         f"(probe {box_sess.cut_clear_fraction})")
+    for cls, rays in cut_classes(box_sess).items():
+        name = f"cut_box_{cls}"
+        rows[name] = screen_row(name, box_sess, "cut_clear", box_sess.cut,
+                                rays, closest=cls != "shadow")
+    if rows["cut_box_d1_closest"]["decided"] == 0:
+        raise SystemExit("chip_smoke: E1 cut_box_d1_closest: the cut cleared"
+                         " no camera ray")
+
+    # every scene's probe fraction (the cut's gate, threshold 0.10)
+    probes = {}
+    scenes = {k.name: load_scene(k)[0] for k in (
+        Scenes.Sponza, Scenes.SunTemple, Scenes.WhiteFurnace, Scenes.BoxTest)}
+    scenes["SponzaAlpha-checker"] = alpha_cases.sponza_alpha_checker()[0]
+    for name, sc in scenes.items():
+        pos, tri = sc.positions.numpy(), sc.tri_idx.numpy()
+        cut = proxy.build_aabb_cut(pos, tri)
+        probes[name] = (0.0 if cut is None
+                        else proxy.probe_clear_fraction(cut, pos, tri))
+    log("E1 probe clear fractions (the cut is on at >= "
+        f"{proxy.CUT_MIN_CLEAR}): " + ", ".join(
+            f"{k} {v:.5f}" for k, v in probes.items()) + f" [{smi}]")
+    if not (probes["BoxTest"] >= proxy.CUT_MIN_CLEAR
+            > max(probes["Sponza"], probes["SunTemple"])):
+        raise SystemExit(f"chip_smoke: E1 probe fractions {probes}")
+    return {"classes": rows, "probe_clear_fraction": probes, "card": smi}
+
+
+def engine_run(label, sess, base, fields, smi, frames=E_FRAMES):
+    """One timed configuration of the engines: the settings with `fields`,
+    the accumulation restarted, a first frame and `frames` more; returns
+    its row and the image."""
+    sess.settings = base.replace(**fields)
+    sess.reset_accumulation()
+    first_s, dts, launches = timed_frames(sess, frames)
+    med = statistics.median(dts)
+    per_frame = {k: launches[k] / (frames + 1)
+                 for k in ("traverse", *ENGINE_KERNELS)}
+    per_frame.update({f"traverse_{k}": v / (frames + 1) for k, v in
+                      launches["traverse_by_instance"].items()})
+    row = {"fields": fields, "first_frame_s": first_s,
+           "ms_per_frame_median": med * 1e3,
+           "ms_per_frame": [t * 1e3 for t in dts],
+           "spread_pct": (max(dts) - min(dts)) / med * 100.0,
+           "launches_per_frame": per_frame, "kernel_launches": launches}
+    log(f"E2 {label}: {med * 1e3:.2f} ms/frame (median of {frames}, spread "
+        f"{row['spread_pct']:.1f}%), first {first_s:.2f} s; launches per "
+        f"frame " + ", ".join(f"{k} {v:g}" for k, v in per_frame.items()
+                              if v) + f" [{smi}]")
+    if not bool(sess.accum.isfinite().all()):
+        raise SystemExit(f"chip_smoke: E2 {label}: image not finite")
+    return row, sess.accum.clone()
+
+
+def phase_engine_ab(frame_sess, box_sess, smi):
+    """E2: the engines on (the defaults) against off, 10 frames after a
+    first, on the 1080p stand-in (with each engine off alone too), the
+    SunTemple stand-in and BoxTest (the cut gated on there); every
+    configuration's image within rel-RMSE 1e-4 of the defaults'."""
+    off = {k: False for k in ENGINE_FIELDS}
+    singles = {"no_packets": {"enable_packet_traversal": False},
+               "no_grid": {"enable_sunspace_shadows": False},
+               "no_proxy": {"enable_dense_proxy": False},
+               "no_cut": {"enable_clear_cut": False}}
+    out, launches = {}, []
+    for scene in ("Sponza", "SunTemple", "BoxTest"):
+        sess = {"Sponza": frame_sess, "BoxTest": box_sess}.get(scene) \
+            or engine_session(scene)
+        base = sess.settings.replace(**{k: True for k in ENGINE_FIELDS})
+        configs = {"on": {}, "off": off}
+        if scene == "Sponza":
+            configs.update(singles)
+        elif scene == "BoxTest":
+            configs = {"on": {}, "no_cut": singles["no_cut"]}
+        rows, imgs = {}, {}
+        for label, fields in configs.items():
+            rows[label], imgs[label] = engine_run(f"{scene} {label}", sess,
+                                                  base, fields, smi)
+            launches.append(rows[label]["kernel_launches"])
+        for label in configs:
+            rows[label]["rel_rmse_vs_on"] = rel_rmse(imgs[label], imgs["on"])
+        on_ms = rows["on"]["ms_per_frame_median"]
+        log(f"E2 {scene}: grid build {sess.sun_grid_build_s:.2f} s (host); "
+            + ", ".join(f"{k} {v['ms_per_frame_median']:.2f} ms "
+                        f"({v['ms_per_frame_median'] / on_ms:.3f}x on, "
+                        f"rel RMSE vs on {v['rel_rmse_vs_on']:.2e})"
+                        for k, v in rows.items()) + f" [{smi}]")
+        if any(v["rel_rmse_vs_on"] > 1e-4 for v in rows.values()):
+            raise SystemExit(f"chip_smoke: E2 {scene}: images differ "
+                             f"{[(k, v['rel_rmse_vs_on']) for k, v in rows.items()]}")
+        # the probe gates the cut on for BoxTest only
+        if bool(rows["on"]["kernel_launches"]["cut_clear"]) != (
+                scene == "BoxTest"):
+            raise SystemExit(f"chip_smoke: E2 {scene}: cut launches "
+                             f"{rows['on']['kernel_launches']['cut_clear']}")
+        out[scene] = {"cut_clear_fraction": sess.cut_clear_fraction,
+                      "grid_build_s": sess.sun_grid_build_s, "runs": rows}
+        sess.settings = base
+        del sess
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_engine_bake_ab(baker, smi, steps=3):
+    """E2, the bake: `steps` steps with the grid and the proxy (the
+    defaults) and without, each from an empty accumulation; the two
+    accumulations must be equal."""
+    sess = baker.session
+    base = sess.settings
+    res, accums = {}, {}
+    launches = []
+    for label, fields in (("on", {}), ("off", {
+            "enable_sunspace_shadows": False, "enable_dense_proxy": False})):
+        sess.settings = base.replace(**fields)
+        baker.accum.zero_()
+        baker.sample_index = 0
+        reset_launches()
+        dts = []
+        for _ in range(steps):
+            sync()
+            t0 = time.time()
+            baker.bake_step()
+            sync()
+            dts.append(time.time() - t0)
+        lw = read_launches()
+        launches.append(lw)
+        accums[label] = baker.accum.clone()
+        res[label] = {"step_s": dts, "step_s_median": statistics.median(dts),
+                      "launches_per_step": {
+                          k: lw[k] / steps for k in ("traverse",
+                                                     *ENGINE_KERNELS)}}
+        log(f"E2 bake {label}: {res[label]['step_s_median']:.3f} s/step "
+            f"(median of {steps}); launches per step "
+            f"{res[label]['launches_per_step']} [{smi}]")
+    sess.settings = base
+    rel = rel_rmse(accums["on"], accums["off"])
+    res["rel_rmse_on_vs_off"] = rel
+    log(f"E2 bake: on {res['on']['step_s_median']:.3f} s/step, off "
+        f"{res['off']['step_s_median']:.3f} s/step; accumulations rel RMSE "
+        f"{rel:.2e}")
+    if rel > 1e-4 or not launches[0]["sun_any_hit"] or launches[1][
+            "sun_any_hit"]:
+        raise SystemExit(f"chip_smoke: E2 bake: rel RMSE {rel:.2e}, "
+                         f"launches {launches}")
+    return res, launches
+
+
+def phase_engine_same_frame(smi):
+    """E3: one engines-on BoxTest frame at E3_SIZE (packet-tileable, the cut
+    gated on) on the card and on the CPU: rel-RMSE <= 1e-4, every engine
+    reached on both routes (kernel launches on the card, the plain versions'
+    calls on the CPU)."""
+    from dxrpathtracer_tpu_torch.accel import packet, proxy, sunspace
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    plain = {"packet": (packet, "packet_traverse_plain"),
+             "sun_any_hit": (sunspace, "sun_any_hit_plain"),
+             "proxy_blocked": (proxy, "proxy_blocked_plain"),
+             "cut_clear": (proxy, "cut_clear_plain")}
+    calls = {k: 0 for k in plain}
+    saved = {k: getattr(m, f) for k, (m, f) in plain.items()}
+
+    def counted(key):
+        def fn(*a, **kw):
+            calls[key] += 1
+            return saved[key](*a, **kw)
+        return fn
+
+    settings = AppSettings(current_scene=Scenes.BoxTest, benchmark_mode=True,
+                           max_path_length=3)
+    imgs, engaged = {}, {}
+    for dev in (DEVICE, "cpu"):
+        sess = RenderSession(settings, *E3_SIZE, device=dev)
+        reset_launches()
+        try:
+            for k, (m, f) in plain.items():
+                setattr(m, f, counted(k))
+            sess.render_frame()
+        finally:
+            for k, (m, f) in plain.items():
+                setattr(m, f, saved[k])
+        imgs[dev] = sess.accum.cpu()
+        lw = read_launches()
+        engaged[dev] = ({"packet": lw["packet_closest"] + lw["packet_any"],
+                         **{k: lw[k] for k in ("sun_any_hit",
+                                               "proxy_blocked", "cut_clear")}}
+                        if dev == DEVICE else dict(calls))
+    rel = rel_rmse(imgs[DEVICE], imgs["cpu"])
+    log(f"E3 BoxTest {E3_SIZE}, engines on: rel RMSE card vs CPU {rel:.3e}; "
+        f"engines reached {engaged} [{smi}]")
+    if rel > 1e-4 or not all(all(v > 0 for v in e.values())
+                             for e in engaged.values()):
+        raise SystemExit(f"chip_smoke: E3: rel RMSE {rel:.3e}, engines "
+                         f"{engaged}")
+    return {"size": E3_SIZE, "rel_rmse": rel, "engaged": engaged}
+
+
+def animated_engines_ab(sess):
+    """E4: the last animated frame's geometry, one sample with the engine
+    fields on (the packets; the session dropped the grid, proxy and cut
+    with the moved geometry) and one with them off: rel-RMSE <= 1e-4."""
+    base = sess.settings
+    imgs = {}
+    for label, fields in (("on", {}), ("off", {k: False
+                                               for k in ENGINE_FIELDS})):
+        sess.settings = base.replace(**fields)
+        sess.reset_accumulation()
+        sess.render_to_completion(1)
+        imgs[label] = sess.accum.clone()
+    sess.settings = base
+    rel = rel_rmse(imgs["on"], imgs["off"])
+    exact = float((imgs["on"] == imgs["off"]).float().mean())
+    log(f"E4 animated frame, engines on vs off: rel RMSE {rel:.3e}, "
+        f"{exact:.4f} of values bit-equal; grid {sess.sun_grid}, proxy "
+        f"{sess.proxy}, cut {sess.cut}")
+    if rel > 1e-4 or sess.proxy is not None or sess.cut is not None:
+        raise SystemExit(f"chip_smoke: E4: rel RMSE {rel:.3e}")
+    return {"rel_rmse": rel, "bit_equal_fraction": exact}
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -2499,6 +3211,10 @@ def main():
     frame_sess, main_path, (classes, _, trav, d1_hits, opaque_inst), \
         frame_launches = phase_main_path(smi)
     same = phase_same_frame()
+    box_sess = engine_session("BoxTest")
+    engines = phase_engine_classes(frame_sess, box_sess, smi)
+    engine_ab, engine_launches = phase_engine_ab(frame_sess, box_sess, smi)
+    del box_sess
     alpha, (alpha_classes, _, alpha_trav, _, alpha_inst), alpha_launches = \
         phase_alpha(smi)
     torch.cuda.empty_cache()
@@ -2506,8 +3222,10 @@ def main():
     render = phase_render_command(smi)
     torch.cuda.empty_cache()
     baker, bake, bake_launches = phase_bake(smi)
+    bake_ab, bake_ab_launches = phase_engine_bake_ab(baker, smi)
     gathers = phase_gather(frame_sess, d1_hits, baker)
     same_bake = phase_same_bake()
+    engine_same = phase_engine_same_frame(smi)
     shade = gathers["b_shading_row"]
     del frame_sess, baker
     torch.cuda.empty_cache()
@@ -2534,7 +3252,8 @@ def main():
     # opaque frame, the alpha frames, the bake, the raster frames, the
     # imported frame, the animation, the viewer) and its ray classes' sums
     runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
-            *r2_launches, fbx_launches, anim_launches, viewer_launches]
+            *r2_launches, fbx_launches, anim_launches, viewer_launches,
+            *engine_launches, *bake_ab_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -2561,6 +3280,24 @@ def main():
          "ms": shade["ms"], "plain_ms": shade["plain_ms"],
          "bound_ms": shade["bound_ms"], "bound_by": shade["bound_by"],
          "library_ms": shade["library_ms"]})
+    # each engine kernel: its launches on the main paths (those runs and
+    # E2's configurations), its E1 class on the 1080p stand-in (the cut's
+    # on 1080p BoxTest, where its probe gates it on)
+    e1_class = {"packet_closest": "d1_closest", "packet_any": "d1_sun",
+                "sun_any_hit": "d2_sun", "proxy_blocked": "proxy_terminal",
+                "cut_clear": "cut_box_d1_closest"}
+    for name, (source, replaces) in ENGINE_KERNELS.items():
+        launches = sum(r[name] for r in runs)
+        row = engines["classes"][e1_class[name]]
+        if launches == 0:
+            raise SystemExit(f"chip_smoke: {name}: no launch on the main "
+                             f"paths")
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
     kernels = {"kernels": entries}
     instances = {instance_name(k): v
                  for k, v in {**opaque_inst, **alpha_inst}.items()}
@@ -2585,7 +3322,9 @@ def main():
                    "fbx_traversal_total": fbx_trav, "animate": anim,
                    "animate_ray_classes": anim_classes,
                    "animate_traversal_total": anim_trav,
-                   "interactive": viewer, **kernels}, f,
+                   "interactive": viewer, "engine_classes": engines,
+                   "engine_ab": engine_ab, "engine_bake_ab": bake_ab,
+                   "engine_same_frame": engine_same, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -115,6 +115,50 @@ def safe_inv(d):
     return 1.0 / torch.where(d.abs() < _EPS, nudged, d)
 
 
+def slab_interval(lo, hi, o, iv, t_lo, t_hi):
+    """The slab test's (t_near, t_far) of boxes `lo`/`hi` (xyz triples) for
+    rays `o` (xyz) with reciprocal directions `iv`, clipped to [t_lo, t_hi];
+    every argument broadcasts. The JAX package's expression in its order,
+    min/max propagating NaN."""
+    t0 = [(lo[a] - o[a]) * iv[a] for a in range(3)]
+    t1 = [(hi[a] - o[a]) * iv[a] for a in range(3)]
+    near = [torch.minimum(t0[a], t1[a]) for a in range(3)]
+    far = [torch.maximum(t0[a], t1[a]) for a in range(3)]
+    tn = torch.maximum(torch.maximum(near[0], near[1]),
+                       torch.maximum(near[2], t_lo))
+    tf = torch.minimum(torch.minimum(far[0], far[1]),
+                       torch.minimum(far[2], t_hi))
+    return tn, tf
+
+
+def moller_trumbore(o, d, v0, e1, e2):
+    """(det_ok, u, v, t) of rays `o`/`d` (xyz triples) against triangles
+    `v0`, `e1`, `e2` (xyz triples); every argument broadcasts. The JAX
+    package's `_intersect_leaf` expression in its order (each product
+    rounded on its own), no backface cull."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z = v0
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    det_ok = det.abs() > _EPS
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    return det_ok, u, v, t
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
@@ -325,6 +369,36 @@ def _argmin_block(keys, codes, width: int, slot_offset: int, pow2):
     return near_key, near_code, pow2[shift.long()]
 
 
+def stack_step(cur, sp, snode, smask, alive, is_leaf, any_child, near_code,
+               rest_mask, done: int, full_mask: int):
+    """The walk's stack and cursor update (per lane, or per packet): ONE
+    (node, remaining-children mask) push where an internal visit leaves
+    hit siblings, then descend the nearest child, else pop the top entry
+    (the parent, revisited with its mask), else done. cur, sp (m,); snode,
+    smask (S, m). Returns (cur, pmask, sp, snode, smask), int32."""
+    i32 = torch.int32
+    is_int = alive & ~is_leaf
+    levels = torch.arange(snode.shape[0], dtype=i32,
+                          device=cur.device)[:, None]
+    do_push = is_int & any_child & (rest_mask != 0)
+    at_sp = (levels == sp[None, :]) & do_push[None, :]
+    snode = torch.where(at_sp, cur[None, :], snode)
+    smask = torch.where(at_sp, rest_mask[None, :], smask)
+    sp_pushed = sp + do_push.to(i32)
+    need_pop = is_leaf | (is_int & ~any_child)
+    at_top = levels == (sp_pushed - 1)[None, :]
+    top_node = torch.where(at_top, snode, 0).sum(dim=0).to(i32)
+    top_mask = torch.where(at_top, smask, 0).sum(dim=0).to(i32)
+    can_pop = sp_pushed > 0
+    popped = torch.where(can_pop, top_node, done)
+    nxt = torch.where(is_int & any_child, near_code,
+                      torch.where(need_pop, popped, done))
+    nxt = torch.where(alive, nxt, done).to(i32)
+    pmask = torch.where(need_pop & can_pop, top_mask, full_mask).to(i32)
+    sp = torch.where(need_pop & can_pop, sp_pushed - 1, sp_pushed).to(i32)
+    return nxt, pmask, sp, snode, smask
+
+
 def traverse_step_plain(bvh: FlatBVH, s: LaneState, first_hit: bool = False,
                         accept_fn=None) -> LaneState:
     """One lockstep step of every lane (`_kernel` / `_traverse`'s body).
@@ -350,18 +424,8 @@ def traverse_step_plain(bvh: FlatBVH, s: LaneState, first_hit: bool = False,
     near_key = near_code = near_bit = None
     for (lox, loy, loz), (hix, hiy, hiz), codes, off, hw in \
             _child_banks(bvh, rec):
-        tx0 = (lox - ox) * ivx
-        tx1 = (hix - ox) * ivx
-        ty0 = (loy - oy) * ivy
-        ty1 = (hiy - oy) * ivy
-        tz0 = (loz - oz) * ivz
-        tz1 = (hiz - oz) * ivz
-        tn = torch.maximum(
-            torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
-            torch.maximum(torch.minimum(tz0, tz1), tmin))
-        tf = torch.minimum(
-            torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
-            torch.minimum(torch.maximum(tz0, tz1), best_t))
+        tn, tf = slab_interval((lox, loy, loz), (hix, hiy, hiz),
+                               (ox, oy, oz), (ivx, ivy, ivz), tmin, best_t)
         # empty slots carry inverted bounds; mask them from the record (the
         # slab result overflows to inf for steep rays)
         valid = lox <= hix
@@ -390,22 +454,9 @@ def traverse_step_plain(bvh: FlatBVH, s: LaneState, first_hit: bool = False,
     tid = rec[:, 9 * L:10 * L].view(i32)
     if bvh.has_alpha_flags:
         tid = torch.where(tid >= 0, tid & ~ALPHA_TID_BIT, tid)
-    dx, dy, dz = s.dx[:, None], s.dy[:, None], s.dz[:, None]
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    det_ok = det.abs() > _EPS
-    inv_det = torch.where(det_ok, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
-    tx = ox - v0x
-    ty = oy - v0y
-    tz = oz - v0z
-    u = (tx * px + ty * py + tz * pz) * inv_det
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    det_ok, u, v, t = moller_trumbore(
+        (ox, oy, oz), (s.dx[:, None], s.dy[:, None], s.dz[:, None]),
+        (v0x, v0y, v0z), (e1x, e1y, e1z), (e2x, e2y, e2z))
     ok = (is_leaf[:, None] & (tid >= 0) & det_ok
           & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t >= tmin) & (t < best_t))
@@ -427,27 +478,9 @@ def traverse_step_plain(bvh: FlatBVH, s: LaneState, first_hit: bool = False,
     bv = torch.where(win, cv, s.bv)
     bt = torch.where(win, ck, s.bt)
 
-    # ---- stack: ONE (node, mask) push when siblings remain ----
-    levels = torch.arange(s.snode.shape[0], dtype=i32, device=dev)[:, None]
-    do_push = is_int & any_child & (rest_mask != 0)
-    at_sp = (levels == s.sp[None, :]) & do_push[None, :]
-    snode = torch.where(at_sp, s.cur[None, :], s.snode)
-    smask = torch.where(at_sp, rest_mask[None, :], s.smask)
-    sp_pushed = s.sp + do_push.to(i32)
-
-    # ---- next cursor: descend nearest, else pop (parent, mask) ----
-    need_pop = is_leaf | (is_int & ~any_child)
-    at_top = levels == (sp_pushed - 1)[None, :]
-    top_node = torch.where(at_top, snode, 0).sum(dim=0).to(i32)
-    top_mask = torch.where(at_top, smask, 0).sum(dim=0).to(i32)
-    can_pop = sp_pushed > 0
-    popped = torch.where(can_pop, top_node, done)
-    cur = torch.where(is_int & any_child, near_code,
-                      torch.where(need_pop, popped, done))
-    cur = torch.where(alive, cur, done).to(i32)
-    pmask = torch.where(need_pop & can_pop, top_mask,
-                        _full_mask(bvh.width)).to(i32)
-    sp = torch.where(need_pop & can_pop, sp_pushed - 1, sp_pushed)
+    cur, pmask, sp, snode, smask = stack_step(
+        s.cur, s.sp, s.snode, s.smask, alive, is_leaf, any_child, near_code,
+        rest_mask, done, _full_mask(bvh.width))
 
     if first_hit:
         # accept the first hit and end the search

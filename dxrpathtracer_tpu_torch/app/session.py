@@ -10,6 +10,13 @@ samples unless benchmark mode is on (:2026-2028). `render_raster_frame`
 renders one forward-shaded frame instead (EnableRayTracing=false). Each pass
 runs in a scope of the session's `profiler`.
 
+The traversal engines' structures are the session's, as in the JAX package:
+the dense proxy and the AABB cut are built with the tables (the cut kept
+only where its host probe clears at least CUT_MIN_CLEAR of
+surface-hemisphere rays), and the sun-space grid is built on the host when
+the first path-traced sample for a sun direction needs it (raster frames
+never do) and again whenever the sun or the engine fields change.
+
 The frame state is {accum, sample_idx}: `checkpoint_state` reads it back to
 the host and `restore_state` resumes from it (a progressive render resumes
 where it stopped). `display_thumbnail` is the interactive viewer's small
@@ -17,10 +24,15 @@ tone-mapped preview, made on the session's device. `rebuild_step` is the hot
 reload hook (app/hotreload.py).
 """
 
+import time
+
 import numpy as np
 import torch
 
 from ..accel.bvh import build_bvh_for_scene
+from ..accel.proxy import (CUT_C, CUT_MIN_CLEAR, PROXY_K, build_aabb_cut,
+                           build_dense_proxy, probe_clear_fraction)
+from ..accel.sunspace import build_sun_grid_for_scene
 from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings, Scenes
 from ..core.constants import FP16Scale
 from ..core.math3 import div
@@ -41,13 +53,12 @@ from .profiler import Profiler
 class RenderSession:
     """Progressive path tracer over one scene on one device.
 
-    Every ray goes through the per-ray BVH traversal (accel/traverse.py): the
-    CUDA kernel on a GPU, its plain torch version on the CPU. The JAX
-    package's engine-select settings (enable_packet_traversal,
-    enable_sunspace_shadows, enable_sw_raster, enable_dense_proxy,
-    enable_clear_cut, enable_mxu_traversal) choose among exact alternates of
-    that walk; the port routes per-ray whatever their values. The frame
-    renders in one pass, with no row slabs.
+    Rays route by the settings' engine fields as in the JAX package
+    (render/integrator.py): packets, the sun-space grid, the dense proxy and
+    the AABB cut in front of the per-ray walk, each the CUDA kernel on a GPU
+    and its plain torch version on the CPU; enable_sw_raster and
+    enable_mxu_traversal select engines the port does not have and are not
+    read. The frame renders in one pass, with no row slabs.
 
     It runs on the card unless the caller passes device="cpu"; with no card
     it raises rather than carry on on the CPU. `scene` (CPU tensors, e.g.
@@ -91,6 +102,12 @@ class RenderSession:
                                            flag_alpha=True).to(self.device)
             self.bvh_ray = build_bvh_for_scene(scene,
                                                width=32).to(self.device)
+            self.proxy, self.cut, self.cut_clear_fraction = \
+                screens_for_scene(scene)
+            if self.proxy is not None:
+                self.proxy = self.proxy.to(self.device)
+            if self.cut is not None:
+                self.cut = self.cut.to(self.device)
         # The scene on the host (CPU tensors; np.asarray views them) that
         # the lightmap atlas builders read, as the JAX package's scene_host.
         self.scene_host = scene
@@ -105,6 +122,11 @@ class RenderSession:
         self.sky = SkyCache()
         self.sky_cube = None
         self._update_sky()
+
+        self.sun_grid = None
+        self._sun_grid_key = None
+        self._geometry_moved = False
+        self.sun_grid_build_s = None  # host seconds of the last grid build
 
         self.sample_idx = 0
         self._last_restart_key = None
@@ -172,12 +194,42 @@ class RenderSession:
                                   dtype=torch.float32, device=self.device)
         self.sample_idx = 0
 
+    def update_sun_grid(self):
+        """The sun-space grid for the current settings, or None where they
+        send no sun ray to it (enable_sunspace_shadows, enable_sun or
+        white-furnace mode) or the geometry has moved. Built on the host
+        under the BuildSunGrid scope when the sun direction or those fields
+        changed since the last build; `sun_grid_build_s` keeps its
+        seconds."""
+        s = self.settings
+        want = (s.enable_sunspace_shadows and s.enable_sun
+                and not s.enable_white_furnace_mode
+                and not self._geometry_moved)
+        key = tuple(np.asarray(s.sun_direction, np.float32)) if want else None
+        if key != self._sun_grid_key:
+            self._sun_grid_key = key
+            self.sun_grid = None
+            if want:
+                t0 = time.perf_counter()
+                with self.profiler.cpu_scope("BuildSunGrid"):
+                    sun_dir = np.asarray(s.sun_direction, np.float32)
+                    self.sun_grid = build_sun_grid_for_scene(
+                        self.scene_host, sun_dir / np.linalg.norm(sun_dir)
+                    ).to(self.device)
+                self.sun_grid_build_s = time.perf_counter() - t0
+        return self.sun_grid
+
     def use_geometry(self, scene, bvh):
         """Render from now on `scene` (on the session's device) with every
         traversal class on `bvh`, a W8 table of that geometry built on the
         device (the `animate` command's moving geometry, as the JAX package
-        routes it); resets the accumulation."""
+        routes it); resets the accumulation. The sun-space grid, the dense
+        proxy and the AABB cut describe the geometry as it was, so they are
+        dropped (packets walk `bvh`)."""
         self.scene, self.bvh, self.bvh_ray = scene, bvh, bvh
+        self.proxy = self.cut = self.sun_grid = None
+        self._sun_grid_key = None
+        self._geometry_moved = True
         self.reset_accumulation()
 
     @property
@@ -212,7 +264,8 @@ class RenderSession:
         frame = self.frame_constants(self.sample_idx)
         self._accum = self._render_sample(
             self.scene, self.bvh, self.bvh_ray, self.sky_cube, self.settings,
-            frame, self.width, self.height, self._accum)
+            frame, self.width, self.height, self._accum,
+            sun_grid=self.update_sun_grid(), proxy=self.proxy, cut=self.cut)
         self.sample_idx += 1
 
     def render_frame(self, force: bool = False) -> bool:
@@ -345,6 +398,23 @@ class RenderSession:
                 lightmap_uvs=lightmap_uvs, sun_shadow_pcf=sun_shadow_pcf,
                 spot_shadow_pcf=spot_shadow_pcf)
         return img
+
+
+def screens_for_scene(scene):
+    """(dense proxy or None, AABB cut or None, the cut's probe fraction) of
+    a scene (CPU tensors): the proxy of its PROXY_K largest opaque
+    triangles, and the cut of CUT_C boxes where the probe clears at least
+    CUT_MIN_CLEAR."""
+    pos = scene.positions.cpu().numpy()
+    tri = scene.tri_idx.cpu().numpy()
+    tri_alpha = None
+    if scene.any_opacity:
+        tri_alpha = scene.has_opacity.cpu().numpy()[
+            scene.tri_material.cpu().numpy()]
+    proxy = build_dense_proxy(pos, tri, tri_alpha=tri_alpha, k=PROXY_K)
+    cut = build_aabb_cut(pos, tri, c=CUT_C)
+    frac = 0.0 if cut is None else probe_clear_fraction(cut, pos, tri)
+    return proxy, cut if frac >= CUT_MIN_CLEAR else None, frac
 
 
 def _resolve_render_sample():

@@ -10,11 +10,13 @@ settings object means the same render in both packages. Any change that the
 reference watches to restart the path trace (DXRPathTracer.cpp:1416-1461)
 changes `restart_key()`, and RenderSession resets its accumulation.
 
-The engine-select fields (enable_packet_traversal, enable_mxu_traversal,
-packet_shadows_all_depths, enable_sunspace_shadows, enable_sw_raster,
-enable_dense_proxy, enable_clear_cut) choose among exact alternates of the
-per-ray walk in the JAX package. The port has only the per-ray walk and
-reads none of them; they stay so that settings compare equal across packages.
+The engine-select fields choose among exact alternates of the per-ray walk
+(render/integrator.py routes by them as the JAX package does):
+enable_packet_traversal and packet_shadows_all_depths (packets),
+enable_sunspace_shadows (the sun-space grid), enable_dense_proxy and
+enable_clear_cut (the broadcast screens). enable_sw_raster and
+enable_mxu_traversal select engines the port does not have; they stay so
+that settings compare equal across packages.
 """
 
 import dataclasses

@@ -9,8 +9,10 @@ RenderBakingPass/RenderBakingPass_Progressive + BakeRayGen
      progressive counter),
   3. the sample is traced through the same integrator the frame uses
      (render/integrator.trace_paths), starting with PathLength 1,
-     IsDiffuse = true, TMin = 1e-4, origin nudged 1e-5 along the ray; every
-     ray walks the W32 table, as in the JAX package,
+     IsDiffuse = true, TMin = 1e-4, origin nudged 1e-5 along the ray; the
+     per-ray walks take the W32 table, opaque sun rays the session's
+     sun-space grid and opaque shadow rays the dense-proxy screen, as in the
+     JAX package (no packets: hemisphere rays are not coherent; no cut),
   4. firefly clamp against 10x the running-mean luminance
      (Baking.hlsl:431-447),
   5. NaN + too-dark (luminance < 1e-4) sample rejection: the accumulation
@@ -53,13 +55,14 @@ MAX_SLAB_TEXELS = 1 << 21
 
 def bake_sample(scene, bvh, sky_cube, settings: AppSettings,
                 frame: FrameConstants, surface_pos, surface_nrm, accum,
-                sample_index: int, row_offset: int = 0, total_texels=None):
+                sample_index: int, row_offset: int = 0, total_texels=None,
+                sun_grid=None, proxy=None):
     """One progressive bake step over a row slab of texels.
 
     surface_pos: (R, S, 4) [xyz | coverage]; surface_nrm: (R, S, 3);
     accum: (R, S, 4) [colorSum | validCount]. Returns the new accum.
     row_offset/total_texels keep the CMJ texel indices GLOBAL when the
-    lightmap is baked in row slabs.
+    lightmap is baked in row slabs. sun_grid and proxy go to trace_paths.
     """
     s_rows, s_res = surface_pos.shape[0], surface_pos.shape[1]
     n = s_rows * s_res
@@ -96,7 +99,8 @@ def bake_sample(scene, bvh, sky_cube, settings: AppSettings,
         scene, bvh, bvh, sky_cube, settings, frame, ray_o, ray_dir,
         torch.full((n,), FP32Max, dtype=f32, device=dev), pixel_idx,
         n_total, first_set_idx=1, initial_is_diffuse=True, t_min0=1e-4,
-        active0=covered, sample_idx=int(sample_index))
+        active0=covered, sample_idx=int(sample_index), sun_grid=sun_grid,
+        proxy=proxy)
 
     # --- firefly clamp + validity accumulation (Baking.hlsl:426-465) ---
     color_sum = accum[..., :3].reshape(n, 3)
@@ -175,14 +179,16 @@ class Baker:
         pos = self.surface_maps["position"]
         nrm = self.surface_maps["normal"]
         rows = self._slab_rows
+        sun_grid = sess.update_sun_grid()
         for r in self._row0:
-            # Bake hemisphere rays are incoherent: every ray walks the W32
-            # table, as in the JAX package.
+            # Bake hemisphere rays are incoherent: the per-ray walks take
+            # the W32 table, as in the JAX package.
             self.accum[r:r + rows] = bake_sample(
                 sess.scene, sess.bvh_ray, sess.sky_cube, sess.settings, frame,
                 pos[r:r + rows], nrm[r:r + rows], self.accum[r:r + rows],
                 self.sample_index, row_offset=r,
-                total_texels=self.resolution * self.resolution)
+                total_texels=self.resolution * self.resolution,
+                sun_grid=sun_grid, proxy=sess.proxy)
         self.sample_index += 1
 
     def checkpoint_state(self):

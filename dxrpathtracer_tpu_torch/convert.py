@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from .accel.bvh import FlatBVH
+from .accel.proxy import AABBCut, DenseProxy
+from .accel.sunspace import SunGrid
 from .render.integrator import FrameConstants
 from .scene.types import LIGHT_ARRAYS, SCENE_ARRAYS, Scene, SpotLights
 
@@ -61,6 +63,39 @@ def bvh_from_numpy(table, num_rows: int, max_depth: int, root_code: int,
     return FlatBVH(table=torch.from_numpy(table), num_rows=int(num_rows),
                    max_depth=int(max_depth), root_code=int(root_code),
                    width=int(width), has_alpha_flags=bool(has_alpha_flags))
+
+
+def sun_grid_from_reference(grid) -> SunGrid:
+    """SunGrid (CPU tensors) from the JAX package's SunGrid (or any object
+    with its attributes: table, index, params, basis, num_rows,
+    grid_size)."""
+    return SunGrid(
+        table=torch.from_numpy(np.array(grid.table, np.float32)),
+        index=torch.from_numpy(np.array(grid.index, np.int32)),
+        params=torch.from_numpy(np.array(grid.params, np.float32)),
+        basis=torch.from_numpy(np.array(grid.basis, np.float32)),
+        num_rows=int(grid.num_rows), grid_size=int(grid.grid_size))
+
+
+_PROXY_COLUMNS = ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y",
+                  "e2z")
+
+
+def proxy_from_reference(proxy) -> DenseProxy:
+    """DenseProxy (CPU tensors) from the JAX package's DenseProxy: its
+    (1, K) columns v0x..e2z and tri_id."""
+    cols = np.stack([np.asarray(getattr(proxy, c), np.float32).reshape(-1)
+                     for c in _PROXY_COLUMNS])
+    return DenseProxy(torch.from_numpy(cols), torch.from_numpy(
+        np.array(proxy.tri_id, np.int32).reshape(-1)))
+
+
+def cut_from_reference(cut) -> AABBCut:
+    """AABBCut (CPU tensors) from the JAX package's AABBCut: its (1, C)
+    columns lox..hiz."""
+    return AABBCut(torch.from_numpy(np.stack([
+        np.asarray(getattr(cut, c), np.float32).reshape(-1)
+        for c in ("lox", "loy", "loz", "hix", "hiy", "hiz")])))
 
 
 def frame_from_numpy(inv_view_projection, camera_pos_ws, sun_direction_ws,

@@ -1,0 +1,187 @@
+// The two broadcast screens of the per-ray shadow and bounce walks, for
+// sm_90a: the dense-proxy test (proxy_blocked) and the AABB-cut test
+// (cut_clear).
+//
+// What they replace. dxrpathtracer_tpu/accel/proxy.py::proxy_blocked (:154)
+// and ::cut_clear (:346), which XLA runs on the TPU as one fused (N, K)
+// broadcast: every lane against the K largest opaque triangles (a
+// Moller-Trumbore test each, any-reduced: a hit is a definitive occlusion),
+// and every lane against C covering boxes of morton-contiguous triangle
+// chunks (a slab test each with a relative + absolute slack; a lane that
+// overlaps no box provably hits nothing).
+//
+// What bounds them on the card. The triangles (9 x K f32, 4.6 KB at K = 128)
+// and the boxes (6 x C f32, 3 KB at C = 128) are the same for every lane;
+// each lane reads its ray once (33 B) and writes one byte. A lane tests up
+// to K triangles at 54 f32 operations each, or C boxes at 29, so the work
+// is operations, not bytes: at most K * 54 per lane, fewer where a lane
+// stops early.
+//
+// What the design does about it. One thread per lane; the block first copies
+// the triangle or box columns into shared memory, where every thread of a
+// warp then reads the same word (a broadcast, no bank conflicts). A lane
+// stops at the first blocking triangle or the first box it may overlap: the
+// result is an any-reduction, so the rest cannot change it.
+//
+// Exactness. Build with --fmad=false and without fast-math: every product is
+// rounded on its own and the division is IEEE, as in the plain torch version
+// (accel/proxy.py) and the JAX package's expressions, in the same order.
+// min/max propagate NaN as torch.minimum/jnp.minimum do (PTX min.NaN).
+//
+// Plain C interface for ctypes: each launcher returns the CUDA error code of
+// the launch (0 on success) and never synchronises.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 128;
+constexpr float kEps = 1e-12f;
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+// tris: (9, k) f32 columns v0x v0y v0z e1x e1y e1z e2x e2y e2z.
+__global__ void __launch_bounds__(kBlock)
+proxy_kernel(const float* __restrict__ tris, int k,
+             const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+             const float* __restrict__ t_min, const float* __restrict__ t_max,
+             const uint8_t* __restrict__ active, int64_t n,
+             uint8_t* __restrict__ out) {
+    extern __shared__ float cols[];
+    for (int j = threadIdx.x; j < 9 * k; j += blockDim.x) cols[j] = tris[j];
+    __syncthreads();
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+    if (i >= n) return;
+    if (!active[i]) {
+        out[i] = 0;
+        return;
+    }
+    const float ox = ray_o[3 * i], oy = ray_o[3 * i + 1], oz = ray_o[3 * i + 2];
+    const float dx = ray_d[3 * i], dy = ray_d[3 * i + 1], dz = ray_d[3 * i + 2];
+    const float tmin = t_min[i], tmax = t_max[i];
+    bool blocked = false;
+    for (int j = 0; j < k && !blocked; ++j) {
+        const float v0x = cols[j], v0y = cols[k + j], v0z = cols[2 * k + j];
+        const float e1x = cols[3 * k + j], e1y = cols[4 * k + j];
+        const float e1z = cols[5 * k + j];
+        const float e2x = cols[6 * k + j], e2y = cols[7 * k + j];
+        const float e2z = cols[8 * k + j];
+        const float px = dy * e2z - dz * e2y;
+        const float py = dz * e2x - dx * e2z;
+        const float pz = dx * e2y - dy * e2x;
+        const float det = e1x * px + e1y * py + e1z * pz;
+        const bool det_ok = fabsf(det) > kEps;
+        const float inv_det =
+            det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
+        const float sx = ox - v0x;
+        const float sy = oy - v0y;
+        const float sz = oz - v0z;
+        const float u = (sx * px + sy * py + sz * pz) * inv_det;
+        const float qx = sy * e1z - sz * e1y;
+        const float qy = sz * e1x - sx * e1z;
+        const float qz = sx * e1y - sy * e1x;
+        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+        blocked = det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
+                  && t >= tmin && t < tmax;
+    }
+    out[i] = blocked ? 1 : 0;
+}
+
+// boxes: (6, c) f32 columns lox loy loz hix hiy hiz.
+__global__ void __launch_bounds__(kBlock)
+cut_kernel(const float* __restrict__ boxes, int c,
+           const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+           const float* __restrict__ t_min, const float* __restrict__ t_max,
+           const uint8_t* __restrict__ active, int64_t n,
+           uint8_t* __restrict__ out) {
+    extern __shared__ float cols[];
+    for (int j = threadIdx.x; j < 6 * c; j += blockDim.x) cols[j] = boxes[j];
+    __syncthreads();
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+    if (i >= n) return;
+    if (!active[i]) {
+        out[i] = 0;
+        return;
+    }
+    const float ox = ray_o[3 * i], oy = ray_o[3 * i + 1], oz = ray_o[3 * i + 2];
+    float inv[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        const float d = ray_d[3 * i + a];
+        // the sign-preserving nudge of near-zero components
+        inv[a] = 1.0f / (fabsf(d) < kEps ? (d < 0.0f ? -kEps : kEps) : d);
+    }
+    const float tmin = t_min[i], tmax = t_max[i];
+    bool maybe_hit = false;
+    for (int j = 0; j < c && !maybe_hit; ++j) {
+        const float t0x = (cols[j] - ox) * inv[0];
+        const float t1x = (cols[3 * c + j] - ox) * inv[0];
+        const float t0y = (cols[c + j] - oy) * inv[1];
+        const float t1y = (cols[4 * c + j] - oy) * inv[1];
+        const float t0z = (cols[2 * c + j] - oz) * inv[2];
+        const float t1z = (cols[5 * c + j] - oz) * inv[2];
+        const float enter =
+            nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                    nan_max(nan_min(t0z, t1z), tmin));
+        const float exit =
+            nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                    nan_min(nan_max(t0z, t1z), tmax));
+        const float slack = 1e-4f * fabsf(exit) + 1e-6f;
+        maybe_hit = enter <= exit + slack;
+    }
+    out[i] = maybe_hit ? 0 : 1;
+}
+
+// Columns up to this many f32 fit the default 48 KB of shared memory.
+constexpr int kMaxColumnFloats = 12 * 1024;
+
+}  // namespace
+
+// out[i] = 1 where an active lane's segment [t_min, t_max) hits one of the k
+// proxy triangles (tris: (9, k) f32), else 0.
+extern "C" int dxrpt_proxy_blocked(const float* tris, int32_t k,
+                                   const float* ray_o, const float* ray_d,
+                                   const float* t_min, const float* t_max,
+                                   const uint8_t* active, int64_t n,
+                                   uint8_t* out, void* stream) {
+    if (n <= 0) return 0;
+    if (k < 1 || 9 * k > kMaxColumnFloats)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t blocks = (n + kBlock - 1) / kBlock;
+    proxy_kernel<<<static_cast<unsigned>(blocks), kBlock,
+                   9 * k * sizeof(float),
+                   static_cast<cudaStream_t>(stream)>>>(
+        tris, k, ray_o, ray_d, t_min, t_max, active, n, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = 1 where an active lane's segment overlaps none of the c boxes
+// (boxes: (6, c) f32) by the slab test with slack, else 0.
+extern "C" int dxrpt_cut_clear(const float* boxes, int32_t c,
+                               const float* ray_o, const float* ray_d,
+                               const float* t_min, const float* t_max,
+                               const uint8_t* active, int64_t n, uint8_t* out,
+                               void* stream) {
+    if (n <= 0) return 0;
+    if (c < 1 || 6 * c > kMaxColumnFloats)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t blocks = (n + kBlock - 1) / kBlock;
+    cut_kernel<<<static_cast<unsigned>(blocks), kBlock, 6 * c * sizeof(float),
+                 static_cast<cudaStream_t>(stream)>>>(
+        boxes, c, ray_o, ray_d, t_min, t_max, active, n, out);
+    return static_cast<int>(cudaGetLastError());
+}

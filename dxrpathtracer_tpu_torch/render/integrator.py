@@ -1,4 +1,4 @@
-"""Wavefront path-tracing integrator on torch tensors — the per-ray route.
+"""Wavefront path-tracing integrator on torch tensors.
 
 The port of dxrpathtracer_tpu/render/integrator.py. The reference's
 recursive megakernel (RayGen -> ClosestHit -> PathTrace -> recursive
@@ -6,19 +6,34 @@ TraceRay, DXRPathTracer/RayTrace.hlsl:92-441) becomes a loop over path depth
 with the whole pixel wavefront carried as SoA tensors;
 `radiance += throughput * child` unrolls into a carried throughput `beta`.
 
-Every ray goes through the per-ray traversal (accel/traverse.py): depth-1
-closest hit and depth-1 sun and spot visibility on the W8 table `bvh`, every
-deeper ray and the terminal visibility ray on the W32 table `ray_bvh` — the
-tables the JAX package's default route uses. Its packet, sun-space grid,
-dense proxy, AABB cut and software raster are exact alternates of that walk
-and are not ported here. The frame is one wavefront in row-major lane order.
+Traversal routes as the JAX package's `trace_paths` does, by the settings'
+engine fields; every engine is exact, so the route changes times, not
+results (closest hits up to the triangle of an equal-t tie):
+  - depth-1 opaque closest hits and depth-1 opaque sun visibility take the
+    packet walk on the W8 table `bvh` (accel/packet.py) when
+    enable_packet_traversal is on and the lanes are packet-tiled
+    (`render_sample` tiles them 128 pixels a packet where a tile divides
+    the image); packet_shadows_all_depths adds the terminal rays;
+  - opaque sun visibility takes the sun-space grid (accel/sunspace.py,
+    enable_sunspace_shadows) at depth >= 2, and at depth 1 without packets
+    (the bake);
+  - every other request walks per ray (accel/traverse.py): depth-1 on `bvh`,
+    deeper on the W32 table `ray_bvh`. With a cut bound (enable_clear_cut,
+    gated per scene by the session) a per-ray opaque closest hit and every
+    per-ray shadow request first drop the lanes the AABB cut clears; an
+    opaque per-ray shadow request then drops the lanes the dense proxy
+    blocks (enable_dense_proxy; accel/proxy.py).
+The software raster, history seeding, split alpha and proxy seeding of the
+JAX package are not ported.
 
-Alpha testing runs inside the walk (the kernel's alpha instantiations, or
-the plain walk's accept_fn): the JAX package's in-loop accept_fn route. Its
-default route, punch-through (`_punch_through_closest`: opaque walks
-re-started past each rejected hit, at most 8 rounds, the last one taking
-what it finds as opaque), gives the same hits except past chains of more
-than 8 rejections and where its t*(1+4e-6)+1e-6 restart skips a surface.
+Alpha testing runs inside the per-ray walk (the kernel's alpha
+instantiations, or the plain walk's accept_fn): the JAX package's in-loop
+accept_fn route, so no engine but the cut sees an alpha-tested ray. The
+JAX package's default route, punch-through (`_punch_through_closest`:
+opaque walks re-started past each rejected hit, at most 8 rounds, the last
+one taking what it finds as opaque), gives the same hits except past chains
+of more than 8 rejections and where its t*(1+4e-6)+1e-6 restart skips a
+surface.
 
 Semantics parity (each implemented below, as in the JAX package):
   - CMJ sample points: primary = set 0, bounce k = set k; permutation =
@@ -45,6 +60,9 @@ import numpy as np
 import torch
 
 from ..accel.gather import row_gather
+from ..accel.packet import PACKET, packet_any_hit, packet_closest_hit
+from ..accel.proxy import cut_clear, screened_any
+from ..accel.sunspace import sun_any_hit
 from ..accel.traverse import AlphaTest, any_hit, closest_hit
 from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings
 from ..core import brdf as brdf_lib
@@ -524,39 +542,77 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                 frame: FrameConstants, ray_o, ray_d, t_max, pixel_idx,
                 total_num_pixels: int, first_set_idx: int = 1,
                 initial_is_diffuse: bool = False, t_min0=0.0, active0=None,
-                sample_idx=None):
+                sample_idx=None, sun_grid=None, proxy=None, cut=None,
+                packet_coherent: bool = False):
     """Trace a wavefront of depth-1 rays to completion; returns (N, 3)
     radiance clamped to [0, FP16Max].
 
-    `bvh` (W8) answers depth-1 closest hits and depth-1 sun and spot
-    visibility; `ray_bvh` (W32) every other traversal. Rays at depths <=
-    max_any_hit_path_length are alpha-tested on alpha-tested scenes (the
-    terminal ray one depth later). `first_set_idx` is the CMJ sample
-    set of the first PathTrace vertex (raygen consumed set 0). The baker
-    passes initial_is_diffuse=True, t_min0=1e-4, its coverage as `active0`
-    and its own sample counter as `sample_idx` (BakeRayGen,
-    Baking.hlsl:395-409); otherwise the CMJ index is the frame's."""
+    `bvh` (W8) answers depth-1 per-ray closest hits and depth-1 per-ray sun
+    and spot visibility, and every packet walk; `ray_bvh` (W32) every other
+    per-ray traversal. Rays at depths <= max_any_hit_path_length are
+    alpha-tested on alpha-tested scenes (the terminal ray one depth later).
+    `sun_grid` (SunGrid for the frame's sun), `proxy` (DenseProxy) and
+    `cut` (AABBCut) are the engines' structures, each used where its
+    settings field is on; packet_coherent=True says that consecutive
+    128-lane groups are coherent (render_sample's tile order). The routes
+    are the module docstring's. `first_set_idx` is the CMJ sample set of
+    the first PathTrace vertex (raygen consumed set 0). The baker passes
+    initial_is_diffuse=True, t_min0=1e-4, its coverage as `active0` and its
+    own sample counter as `sample_idx` (BakeRayGen, Baking.hlsl:395-409);
+    otherwise the CMJ index is the frame's."""
     s = settings
     n = ray_o.shape[0]
     cmj_sample_idx = frame.curr_sample_idx if sample_idx is None else sample_idx
     alpha = _make_alpha_test(scene, s)
+    sun_grid = sun_grid if s.enable_sunspace_shadows else None
+    proxy = proxy if s.enable_dense_proxy else None
+    cut = cut if s.enable_clear_cut else None
+    use_packet = (packet_coherent and bool(s.enable_packet_traversal)
+                  and n % PACKET == 0)
     state = _path_state0(ray_o, ray_d, t_max, t_min0, active0,
                          initial_is_diffuse)
     for depth, flags in _depth_schedule(s):
-        table = bvh if depth == 1 else ray_bvh
-        rec = closest_hit(table, state["ray_o"], state["ray_d"],
-                          state["t_min"], state["t_max"], state["active"],
-                          alpha=alpha if flags["use_any_hit"] else None)
+        a = alpha if flags["use_any_hit"] else None
+        args = (state["ray_o"], state["ray_d"], state["t_min"],
+                state["t_max"])
+        if a is None and use_packet and depth == 1:
+            rec = packet_closest_hit(bvh, *args, state["active"])
+        else:
+            act = state["active"]
+            if cut is not None and a is None:
+                # a lane the cut clears is a miss: inactive, it keeps the
+                # miss record (t = t_max, tri_id = -1)
+                act = act & ~cut_clear(cut, *args, act)
+            rec = closest_hit(bvh if depth == 1 else ray_bvh, *args, act,
+                              alpha=a)
         state, reqs, mid = _shade_vertex(
             scene, sky_cube, s, frame, depth, flags, state, rec, pixel_idx,
             total_num_pixels, first_set_idx, cmj_sample_idx)
         if flags["early_stop"]:
             break
         plan = _shadow_plan(scene, s, alpha is not None, flags)
+        packet_depth = use_packet and (depth == 1
+                                       or s.packet_shadows_all_depths)
         vis_list = [None] * len(reqs)
-        for _, table, r, a, positions in _shadow_calls(bvh, ray_bvh, alpha,
-                                                       depth, plan, reqs):
-            vis = any_hit(table, *r, alpha=a)
+        for kind, table, r, a, positions in _shadow_calls(bvh, ray_bvh, alpha,
+                                                          depth, plan, reqs):
+            packet_kind = packet_depth and (
+                kind == "sun"
+                or (kind == "terminal" and s.packet_shadows_all_depths))
+            if (a is None and kind == "sun" and sun_grid is not None
+                    and not (depth == 1 and use_packet)):
+                vis = sun_any_hit(sun_grid, *r)
+            elif packet_kind and a is None:
+                vis = packet_any_hit(bvh, *r)
+            elif packet_kind:
+                # the JAX package's packet punch-through: here the per-ray
+                # walk with the alpha test, unscreened
+                vis = any_hit(table, *r, alpha=a)
+            else:
+                vis = screened_any(
+                    lambda o, d, tn, tx, m, table=table, a=a: any_hit(
+                        table, o, d, tn, tx, m, alpha=a),
+                    *r, proxy=proxy if a is None else None, cut=cut)
             for j, i in enumerate(positions):
                 vis_list[i] = vis[j * n:(j + 1) * n]
         state = _apply_vertex(s, sky_cube, depth, flags, state, mid, vis_list)
@@ -602,16 +658,54 @@ def raygen(settings: AppSettings, frame: FrameConstants, width: int,
     return ray_start, ray_dir, ray_len, pixel_idx
 
 
+def _packet_tile_dims(height: int, width: int):
+    """A 128-pixel tile (ty, tx) that divides the image, square-ish first
+    (the best packet coherence), or None."""
+    for ty in (8, 16, 4, 32, 2, 64, 1, 128):
+        tx = PACKET // ty
+        if height % ty == 0 and width % tx == 0:
+            return ty, tx
+    return None
+
+
+def _tile_order(x, height: int, width: int, ty: int, tx: int):
+    """Row-major (H*W, ...) lanes -> packet-tiled order: each 128
+    consecutive lanes are one ty x tx pixel tile."""
+    trail = x.shape[1:]
+    x = x.reshape(height // ty, ty, width // tx, tx, *trail)
+    return x.transpose(1, 2).reshape(height * width, *trail)
+
+
+def _untile_order(x, height: int, width: int, ty: int, tx: int):
+    """The inverse of _tile_order."""
+    trail = x.shape[1:]
+    x = x.reshape(height // ty, width // tx, ty, tx, *trail)
+    return x.transpose(1, 2).reshape(height * width, *trail)
+
+
 def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
-                  frame: FrameConstants, width: int, height: int, accum):
+                  frame: FrameConstants, width: int, height: int, accum,
+                  sun_grid=None, proxy=None, cut=None):
     """One progressive sample over the whole frame: raygen + trace + running
     mean (RaygenShader, RayTrace.hlsl:92-149). Returns the new accumulation
-    (height, width, 3) f32."""
+    (height, width, 3) f32. With enable_packet_traversal on and a 128-pixel
+    tile dividing the image, the lanes are traced in tile order (each ray
+    with its pixel index, so the CMJ samples are the row-major frame's) and
+    the radiance is put back in row-major order; `sun_grid`, `proxy` and
+    `cut` go to trace_paths."""
     ray_start, ray_dir, ray_len, pixel_idx = raygen(
         settings, frame, width, height, accum.device)
+    dims = (_packet_tile_dims(height, width)
+            if settings.enable_packet_traversal else None)
+    rays = (ray_start, ray_dir, ray_len, pixel_idx)
+    if dims is not None:
+        rays = tuple(_tile_order(x, height, width, *dims) for x in rays)
     radiance = trace_paths(scene, bvh, ray_bvh, sky_cube, settings, frame,
-                           ray_start, ray_dir, ray_len, pixel_idx,
-                           width * height, first_set_idx=1)
+                           *rays, width * height, first_set_idx=1,
+                           sun_grid=sun_grid, proxy=proxy, cut=cut,
+                           packet_coherent=dims is not None)
+    if dims is not None:
+        radiance = _untile_order(radiance, height, width, *dims)
     radiance = radiance.reshape(height, width, 3)
     idx = np.float32(frame.curr_sample_idx)
     lerp_factor = float(idx / (idx + np.float32(1.0)))  # f32, as the reference

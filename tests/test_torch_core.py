@@ -8,6 +8,7 @@ atol 1e-7 (both sides are float32; the sampling tests share XLA's sin/cos, see
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402

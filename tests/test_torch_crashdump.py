@@ -14,6 +14,7 @@ as tests/test_crashdump.py holds the JAX package's.
 import json
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -20,6 +20,7 @@ EXR output, the `render` command) against dxrpathtracer_tpu.
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

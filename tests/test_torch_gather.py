@@ -12,6 +12,7 @@ for bit, on the card by chip_smoke.py. Inputs are made from a numpy seed.
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")

@@ -25,6 +25,7 @@ import sys
 import textwrap
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytest.importorskip("torch")
 

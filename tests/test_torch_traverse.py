@@ -29,6 +29,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
