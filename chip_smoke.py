@@ -32,7 +32,10 @@ front of the per-ray walks). Phases, each fatal on failure:
      one SM holds at once (the persistent grid); the opaque W32
      instantiations must have no stack frame and no spills; the same ptxas
      figures of the five engine kernels (packet closest and any, the grid
-     walk, the proxy and cut screens);
+     walk, the proxy and cut screens), with the warps one SM holds at once
+     of the packet and screen kernels; the packet kernels (one warp per
+     packet, its stack in registers) must have no stack frame and no
+     spills;
   3. traversal kernel against plain: the kernel and its plain torch version,
      both on the card, (a) on the five ray classes of one plain-route 1080p
      sample (depth-1 closest on W8, depth-1 sun on W8, depth-2 closest, sun
@@ -79,6 +82,16 @@ front of the per-ray walks). Phases, each fatal on failure:
      unscreened, and some camera rays must be cleared; each with kernel
      and plain ms, its visits or tests and its bound; the probe fraction
      of every scene the script builds (BoxTest >= 0.10 > the stand-ins');
+     the edge cases of tools/traverse_cases.py, each kernel against its
+     plain version, 0 lanes that differ: packets (closest and any) on the
+     ties and soup cases padded to whole packets and, on the stand-in's W8
+     table, a packet with no active ray, packets with one, a packet whose
+     rays all hit in the first leaf (its any-hit walk must visit one
+     leaf) and one that reaches the deepest stack the table needs (the
+     plain walk's stack height must equal the deepest leaf's depth); the
+     proxy at K = 8 and 1,365 (the soup) and 24 (BoxTest) on rays with n
+     not a multiple of 32, inactive lanes, t_max <= t_min and +-0
+     direction components;
   E2. engines A/B: 10 timed frames after a first per configuration, the
      settings switched on that session: the stand-in with the engines on
      (the defaults) and off (the five fields), and with each of packets,
@@ -450,10 +463,19 @@ def phase_build():
     secs["traverse_kernels"] = {instance_name(k): row
                                 for k, row in kernels.items()}
     engines = {}
+    warps = engine_resident_warps(packet, proxy)
     for lib in (packet, sunspace, proxy):
         for name, row in ptxas_entries(lib.BUILD_LOG).items():
+            if name in warps:
+                row["resident_warps_per_sm"] = warps[name]
             engines[name] = row
             log(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
+            # one warp per packet: the stack lives in registers
+            if name.startswith("packet") and (row["stack_frame_bytes"]
+                                              or row["spill_stores"]
+                                              or row["spill_loads"]):
+                raise SystemExit(f"chip_smoke: the packet kernel uses local "
+                                 f"memory: {row}")
     want = {"packet_closest", "packet_any", "sun_any_hit", "proxy_blocked",
             "cut_clear"}
     if set(engines) != want:
@@ -461,6 +483,25 @@ def phase_build():
                          f"{sorted(engines)}, want {sorted(want)}")
     secs["engine_kernels"] = engines
     return secs
+
+
+def engine_resident_warps(packet, proxy):
+    """{kernel: warps one SM holds at once} of the packet kernels and the
+    screens (the proxy at PROXY_K columns, the cut at CUT_C boxes), by the
+    occupancy queries of csrc/packet.cu and csrc/screen.cu."""
+    import ctypes
+    plib, slib = packet.kernel_library(), proxy.kernel_library()
+    plib.dxrpt_packet_resident_warps.argtypes = [ctypes.c_int32]
+    slib.dxrpt_screen_resident_warps.argtypes = [ctypes.c_int32,
+                                                 ctypes.c_int32]
+    out = {"packet_closest": plib.dxrpt_packet_resident_warps(0),
+           "packet_any": plib.dxrpt_packet_resident_warps(1),
+           "proxy_blocked": slib.dxrpt_screen_resident_warps(
+               1, proxy.PROXY_K),
+           "cut_clear": slib.dxrpt_screen_resident_warps(0, proxy.CUT_C)}
+    if min(out.values()) <= 0:
+        raise SystemExit(f"chip_smoke: occupancy queries failed: {out}")
+    return out
 
 
 def ptxas_entries(log_text):
@@ -2837,6 +2878,100 @@ def screen_row(name, sess, screen, obj, rays, closest):
     return row
 
 
+def engine_edge_cases(sess, box_sess):
+    """E1's edge cases, each kernel against its plain version on the card,
+    0 lanes that differ in any bit: the packet walk, closest and any hit,
+    on the ties and soup cases padded to whole packets (their W8 tables)
+    and on tools/traverse_cases.packet_edge_cases of the stand-in's W8
+    table (a packet with no active ray, packets with one, a packet whose
+    rays all hit in the first leaf it reaches, a packet that reaches the
+    deepest stack the table needs); the proxy screen on proxy_edge_rays at
+    K = 8 and K = 1,365 (the soup) and K = 24 (BoxTest's proxy)."""
+    import numpy as np
+
+    from dxrpathtracer_tpu_torch.accel import bvh as bvh_mod
+    from dxrpathtracer_tpu_torch.accel import packet, proxy, traverse
+    from dxrpathtracer_tpu_torch.tools import traverse_cases as tc
+
+    def tensors(rays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(rays[f])).to(
+            sess.device) for f in tc.RAY_FIELDS)
+
+    sets = [(name, bvh_mod.build_bvh(*tris, width=8).to(sess.device),
+             tc.pad_to_packets(rays))
+            for name, (tris, rays) in tc.cases(0).items()]
+    pos = sess.scene_host.positions.numpy()
+    tri = sess.scene_host.tri_idx.numpy()
+    table = sess.bvh.table.cpu().numpy()
+    for name, rays in tc.packet_edge_cases(
+            pos[tri[:, 0]], pos[tri[:, 1]], pos[tri[:, 2]], table,
+            sess.bvh.root_code).items():
+        sets.append((f"stand-in {name}", sess.bvh, rays))
+    rows, bad = {}, []
+    for name, bvh, rays in sets:
+        o, d, tmin, tmax, act = rays = tensors(rays)
+        inv = traverse.safe_inv(d).contiguous()
+        for first_hit in (False, True):
+            stats = {}
+            ref = packet.packet_traverse_plain(bvh, o, d, inv, tmin, tmax,
+                                               act, first_hit, stats)
+            got = packet._launch_kernel(bvh, o, d, inv, tmin, tmax, act,
+                                        first_hit)
+            key = f"packet {name} {'any' if first_hit else 'closest'}"
+            row = rows[key] = {
+                "rays": o.shape[0], "active": int(act.sum()),
+                "hits": int(got.hit.sum()), "leaf_visits": stats["leaf"],
+                "internal_visits": stats["internal"],
+                "mismatches_vs_plain": sum(
+                    bits_differ(getattr(got, f), getattr(ref, f))
+                    for f in ("t", "u", "v"))
+                + int((got.tri_id != ref.tri_id).sum())}
+            if name == "stand-in first_leaf" and first_hit:
+                # any hit ends in the first leaf: every ray hits there
+                row["made_to_reach"] = (stats["leaf"] == 1
+                                        and row["hits"] == row["rays"])
+            if name == "stand-in deep_stack" and not first_hit:
+                depth, _ = tc.deepest_leaf(table, bvh.root_code)
+                row["stack_height"] = tc.packet_stack_height(bvh, rays)
+                row["deepest_leaf_depth"] = depth
+                row["made_to_reach"] = row["stack_height"] == depth
+            log(f"E1 edge {key}: " + ", ".join(f"{k}={v}"
+                                               for k, v in row.items()))
+            if row["mismatches_vs_plain"] or row.get("made_to_reach") is \
+                    False:
+                bad.append(key)
+    v0, v1, v2 = tc.soup(0)
+    t = v0.shape[0]
+    soup_pos = np.concatenate([v0, v1, v2])
+    soup_tri = np.arange(3 * t, dtype=np.int32).reshape(3, t).T.copy()
+    rays = proxy._rays(*tensors(tc.proxy_edge_rays()))
+    o, d, tmin, tmax, act = rays
+    for name, px in (("k8", proxy.build_dense_proxy(soup_pos, soup_tri, k=8)),
+                     ("k1365", proxy.build_dense_proxy(
+                         soup_pos, soup_tri, k=proxy.MAX_COLUMNS)),
+                     ("box_k24", box_sess.proxy)):
+        px = px.to(sess.device)
+        ref = proxy.proxy_blocked_plain(px, *rays)
+        got = proxy._launch("proxy_blocked", px.tris, rays)
+        key = f"proxy {name}"
+        row = rows[key] = {
+            "k": px.k, "rays": o.shape[0], "active": int(act.sum()),
+            "empty_segments": int((act & (tmax <= tmin)).sum()),
+            "signed_zero_lanes": int(((d == 0) & torch.signbit(d)).any(
+                dim=1).sum()),
+            "blocked": int(got.sum()),
+            "mismatches_vs_plain": int((got != ref).sum())}
+        log(f"E1 edge {key}: " + ", ".join(f"{k}={v}"
+                                           for k, v in row.items()))
+        if row["mismatches_vs_plain"] or row["k"] != {
+                "k8": 8, "k1365": proxy.MAX_COLUMNS, "box_k24": 24}[name]:
+            bad.append(key)
+    if bad:
+        raise SystemExit(f"chip_smoke: E1 edge cases {bad}: "
+                         f"{[rows[k] for k in bad]}")
+    return rows
+
+
 def engine_session(scene):
     """A 1080p session of `scene` with the default settings (the engines
     on), as E1 and E2 drive it."""
@@ -3007,7 +3142,8 @@ def phase_engine_classes(sess, box_sess, smi):
     if not (probes["BoxTest"] >= proxy.CUT_MIN_CLEAR
             > max(probes["Sponza"], probes["SunTemple"])):
         raise SystemExit(f"chip_smoke: E1 probe fractions {probes}")
-    return {"classes": rows, "probe_clear_fraction": probes, "card": smi}
+    return {"classes": rows, "edge_cases": engine_edge_cases(sess, box_sess),
+            "probe_clear_fraction": probes, "card": smi}
 
 
 def engine_run(label, sess, base, fields, smi, frames=E_FRAMES):

@@ -13,8 +13,8 @@ entry; at a leaf every live ray tests the 12 triangles. Closest hits are the
 per-ray walk's up to the triangle of an equal-t tie; any-hit visibility is
 equal. Alpha-tested rays are not the packet's: they take the per-ray walk.
 
-`packet_closest_hit` and `packet_any_hit` launch csrc/packet.cu (one block
-per packet, one thread per ray) for CUDA tensors and run
+`packet_closest_hit` and `packet_any_hit` launch csrc/packet.cu (one warp
+per packet, four rays per lane) for CUDA tensors and run
 `packet_traverse_plain` (the JAX package's step, over the packets still
 walking) for CPU tensors; they route on the device alone.
 """

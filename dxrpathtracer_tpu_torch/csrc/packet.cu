@@ -19,18 +19,44 @@
 // 8 x 128 slab tests (27 f32 operations each) or 12 x 128 triangle tests
 // (55 each); the tables (about 17 MB for a quarter-million triangles) sit in
 // the 50 MB L2. So the work is operations, and what the packet saves is
-// record reads: one per packet step instead of one per ray step.
+// record reads: one per packet step instead of one per ray step. What costs
+// more than the operations is each step's dependent chain (record load,
+// verdict, next node) and the lanes that hold dead rays.
 //
-// What the design does about it. One 128-thread block per packet, one thread
-// per ray. Each step the block's first warp copies the record into shared
-// memory as 32 16-byte vectors (one coalesced load), and every thread reads
-// its words from there (broadcasts). The cull and the child order are block
-// reductions: per child slot, a ballot and a warp minimum of the ordered-int
-// entry distance in each warp, combined through shared memory. The walk
-// state (node, mask, stack height) is block-uniform and every thread
-// computes the step's verdicts alike; thread 0 alone keeps the (node, mask)
-// stack (in its local memory, as csrc/traverse.cu's W8 walk does) and hands
-// the next node and mask to the block through shared memory. A leaf's triangle tests are each thread's own.
+// What the design does about it. One warp walks one packet, and a block
+// holds kWarps independent packets: nothing in the kernel waits on another
+// warp (no block barrier). A step puts the tests of 128 rays on 32 lanes,
+// so what the design fights is the length of each step's dependent chain,
+// which a long walk pays once per step.
+//  - The rays: lane l's four slots hold rays 32 r + l (r = 0..3), so each
+//    row's loads coalesce, with origin, direction, 1/d, t_min and best hit
+//    in registers. A slot's test runs whether its ray is live or not and its
+//    result is masked (no branch per ray), so the four rays' chains overlap.
+//    In any-hit mode the live rays are compacted into the fewest rows (a
+//    ballot per row, their ids through the warp's shared list) at the start
+//    and after a leaf that leaves a row empty: a ray that finds its hit is
+//    written out at once and drops out, and an inactive ray never walks.
+//  - The record: each lane loads one 16-byte vector of it (one coalesced
+//    512 B load) into the warp's own shared-memory slot; after __syncwarp
+//    every lane reads its words from there as broadcasts. The slot is
+//    double-buffered, so one __syncwarp a step orders the next step's store
+//    after every lane's reads of the last.
+//  - The verdict: per slot a lane ORs and mins over its own rays (the entry
+//    t as an ordered int), then one __reduce_or_sync of the lanes' slot
+//    masks and one __reduce_min_sync per slot give the packet's. OR and min
+//    are the same over the 128 rays in any grouping, so the verdict is the
+//    plain version's by construction; the nearest child is the same strict
+//    < scan over ascending slots.
+//  - The walk state (node, mask, stack height) is warp-uniform; the (node,
+//    mask) stack lives in the lanes' registers, entry e in lane e % 32 (as
+//    csrc/traverse.cu's W32 walk keeps it), pushed by one lane, popped by a
+//    shuffle: no local-memory stack frame.
+//  - An any-hit packet ends when no ray is left live, and a packet with no
+//    active ray ends at once.
+// Measured on the H100 (PERF.md): masking instead of branching per
+// ray and the any-hit compaction each shortened the walk; persistent warps
+// taking packets from a counter, a register cap, and unrolling the leaf's
+// triangle loop each lengthened it.
 //
 // Exactness. Build with --fmad=false and without fast-math: every product is
 // rounded on its own and every division is IEEE, as in the plain torch
@@ -44,18 +70,19 @@
 // the launch (0 on success) and never synchronises.
 
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kPacket = 128;      // rays per packet = threads per block
-constexpr int kWarps = kPacket / 32;
+constexpr int kPacket = 128;      // rays per packet
+constexpr int kRays = kPacket / 32;  // rays per lane
+constexpr int kWarps = 4;         // packets (warps) per block
 constexpr int kRecord = 128;      // f32 slots per record
 constexpr int kLeafSize = 12;     // triangles per leaf record
 constexpr int kWidth = 8;         // children per W8 internal record
 constexpr int kMaxStack = 64;     // (node, mask) entries; the wrapper checks
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr uint32_t kAllSlots = (1u << kWidth) - 1u;
 constexpr float kBig = 3e38f;     // "no hit" key
 constexpr float kEps = 1e-12f;    // determinant threshold
 constexpr int32_t kAlphaTidBit = 1 << 30;
@@ -83,14 +110,8 @@ __device__ __forceinline__ float from_ordered(int32_t i) {
     return __int_as_float(i ^ ((i >> 31) & 0x7FFFFFFF));
 }
 
-struct Hit {
-    float t;
-    int32_t tri;
-    float u, v;
-};
-
 template <bool kFirstHit>
-__global__ void __launch_bounds__(kPacket)
+__global__ void __launch_bounds__(kWarps * 32)
 packet_kernel(const float* __restrict__ table, int32_t done,
               int32_t root_code, int32_t stack_depth, int32_t max_iters,
               bool strip_alpha, const float* __restrict__ ray_o,
@@ -98,205 +119,293 @@ packet_kernel(const float* __restrict__ table, int32_t done,
               const float* __restrict__ inv_d,
               const float* __restrict__ t_min,
               const float* __restrict__ t_max,
-              const uint8_t* __restrict__ active,
+              const uint8_t* __restrict__ active, int64_t packets,
               float* __restrict__ out_t, int32_t* __restrict__ out_tri,
               float* __restrict__ out_u, float* __restrict__ out_v) {
-    __shared__ float4 rec4[kRecord / 4];
-    __shared__ uint32_t warp_hits[kWarps][kWidth];
-    __shared__ int32_t warp_min[kWarps][kWidth];
-    __shared__ int32_t walk_cur;
-    __shared__ uint32_t walk_mask;
-    const float* rec = reinterpret_cast<const float*>(rec4);
+    static_assert(kMaxStack == 64, "the stack holds two entries per lane");
+    // each warp's record (double-buffered) and list of live ray ids
+    __shared__ float4 rec4[kWarps][2][kRecord / 4];
+    __shared__ int32_t live_ids[kWarps][kPacket];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * kPacket
-                      + threadIdx.x;
+    const int64_t packet = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+    if (packet >= packets) return;  // the whole warp
+    const int64_t base = packet * kPacket;
 
-    const float ox = ray_o[3 * i], oy = ray_o[3 * i + 1], oz = ray_o[3 * i + 2];
-    const float dx = ray_d[3 * i], dy = ray_d[3 * i + 1], dz = ray_d[3 * i + 2];
-    const float ivx = inv_d[3 * i], ivy = inv_d[3 * i + 1];
-    const float ivz = inv_d[3 * i + 2];
-    const float tmin = t_min[i];
-    const bool act = active[i] != 0;
-    Hit best{t_max[i], -1, 0.0f, 0.0f};
+    // the lane's rays: slot r holds ray id[r] of the packet, at first
+    // 32 r + lane; bit r of `live` is set while slot r's ray walks, and
+    // slots r >= rows (warp-uniform) hold none
+    int32_t id[kRays];
+    float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
+    float ivx[kRays], ivy[kRays], ivz[kRays], tmin[kRays];
+    float bt[kRays], bu[kRays], bv[kRays];
+    int32_t btri[kRays];
+    uint32_t live = 0;
+    int rows = kRays;
+    auto load = [&](int r) {
+        const int64_t i = base + id[r];
+        ox[r] = __ldg(ray_o + 3 * i);
+        oy[r] = __ldg(ray_o + 3 * i + 1);
+        oz[r] = __ldg(ray_o + 3 * i + 2);
+        dx[r] = __ldg(ray_d + 3 * i);
+        dy[r] = __ldg(ray_d + 3 * i + 1);
+        dz[r] = __ldg(ray_d + 3 * i + 2);
+        ivx[r] = __ldg(inv_d + 3 * i);
+        ivy[r] = __ldg(inv_d + 3 * i + 1);
+        ivz[r] = __ldg(inv_d + 3 * i + 2);
+        tmin[r] = __ldg(t_min + i);
+        bt[r] = __ldg(t_max + i);
+        btri[r] = -1;
+        bu[r] = 0.0f;
+        bv[r] = 0.0f;
+    };
+#pragma unroll
+    for (int r = 0; r < kRays; ++r) {
+        id[r] = 32 * r + lane;
+        load(r);
+        live |= (active[base + id[r]] != 0 ? 1u : 0u) << r;
+    }
+    // any hit: the live rays packed into the fewest rows, slot r of lane l
+    // taking entry 32 r + l of the list of live ids (in their order)
+    auto compact = [&]() {
+        const uint32_t below = (1u << lane) - 1u;
+        int n = 0;
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+            if (r >= rows) break;
+            const bool l = (live >> r) & 1u;
+            const uint32_t b = __ballot_sync(kFull, l);
+            if (l) live_ids[warp][n + __popc(b & below)] = id[r];
+            n += __popc(b);
+        }
+        __syncwarp();
+        rows = (n + 31) / 32;
+        live = 0;
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+            const int e = 32 * r + lane;
+            if (e < n) {
+                id[r] = live_ids[warp][e];
+                load(r);
+                live |= 1u << r;
+            }
+        }
+        __syncwarp();  // the list is read before it is written again
+    };
+    if (kFirstHit) {
+        // an inactive ray is a miss, written now; a ray with a hit is
+        // written at its leaf, and the rays still live at the end
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+            if (!((live >> r) & 1u)) {
+                const int64_t i = base + id[r];
+                out_t[i] = bt[r];
+                out_tri[i] = -1;
+                out_u[i] = 0.0f;
+                out_v[i] = 0.0f;
+            }
+        }
+        compact();
+    }
 
-    // the walk state: every thread holds the node and its mask; thread 0
-    // alone keeps the stack and its height, and hands each step's next
-    // node and mask to the block through shared memory
-    int32_t cur = __syncthreads_or(act) ? root_code : done;
-    uint32_t pmask = (1u << kWidth) - 1u;
+    // the warp-uniform walk state; stack entry e lives in lane e % 32, as
+    // node0/mask0 (e < 32) or node1/mask1
+    int32_t cur = __any_sync(kFull, live != 0) ? root_code : done;
+    uint32_t pmask = kAllSlots;
     int32_t sp = 0;
-    int32_t snode[kMaxStack];   // thread 0's
-    uint32_t smask[kMaxStack];
+    int32_t node0 = 0, node1 = 0;
+    uint32_t mask0 = 0u, mask1 = 0u;
 
     for (int32_t it = 0; it < max_iters && cur != done; ++it) {
         const bool is_leaf = cur < 0;
         const int64_t row = is_leaf ? ~cur : cur;
-        __syncthreads();  // the last step's reads of shared memory are done
-        if (threadIdx.x < kRecord / 4)
-            rec4[threadIdx.x] = __ldg(reinterpret_cast<const float4*>(
-                table + row * kRecord) + threadIdx.x);
-        __syncthreads();
-        const bool live = act && (!kFirstHit || best.tri < 0);
-        const float prune_t = best.t;
+        float4* buf = rec4[warp][it & 1];
+        buf[lane] = __ldg(reinterpret_cast<const float4*>(
+            table + row * kRecord) + lane);
+        __syncwarp();
+        const float* rec = reinterpret_cast<const float*>(buf);
         bool any_child = false;
         int32_t near_code = 0;
         uint32_t rest_mask = 0;
 
         if (!is_leaf) {
-            // ---- internal: every live ray slab-tests the allowed slots ----
+            // ---- internal: per allowed slot, each lane slab-tests its
+            // rays (a dead ray's result is masked); per slot the lanes'
+            // least entry t as an ordered int ----
+            uint32_t lane_hits = 0;
+            int32_t lane_min[kWidth];
 #pragma unroll
             for (int j = 0; j < kWidth; ++j) {
+                lane_min[j] = ordered(kBig);
                 // empty slots have inverted bounds in the record; a slot the
-                // mask leaves out is not tested (block-uniform branches)
-                if (!(rec[j] <= rec[24 + j]) || !((pmask >> j) & 1u))
-                    continue;
-                const float tx0 = (rec[j] - ox) * ivx;
-                const float tx1 = (rec[24 + j] - ox) * ivx;
-                const float ty0 = (rec[8 + j] - oy) * ivy;
-                const float ty1 = (rec[32 + j] - oy) * ivy;
-                const float tz0 = (rec[16 + j] - oz) * ivz;
-                const float tz1 = (rec[40 + j] - oz) * ivz;
-                const float tn =
-                    nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
-                            nan_max(nan_min(tz0, tz1), tmin));
-                const float tf =
-                    nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
-                            nan_min(nan_max(tz0, tz1), prune_t));
-                const bool ray_hit = live && tn <= tf;
-                const uint32_t ballot = __ballot_sync(kFull, ray_hit);
-                const int32_t m = __reduce_min_sync(
-                    kFull, ordered(ray_hit ? tn : kBig));
-                if (lane == 0) {
-                    warp_hits[warp][j] = ballot;
-                    warp_min[warp][j] = m;
+                // mask leaves out is not tested (warp-uniform branches)
+                const float lox = rec[j], hix = rec[24 + j];
+                if (!(lox <= hix) || !((pmask >> j) & 1u)) continue;
+                const float loy = rec[8 + j], hiy = rec[32 + j];
+                const float loz = rec[16 + j], hiz = rec[40 + j];
+#pragma unroll
+                for (int r = 0; r < kRays; ++r) {
+                    if (r >= rows) break;
+                    const float tx0 = (lox - ox[r]) * ivx[r];
+                    const float tx1 = (hix - ox[r]) * ivx[r];
+                    const float ty0 = (loy - oy[r]) * ivy[r];
+                    const float ty1 = (hiy - oy[r]) * ivy[r];
+                    const float tz0 = (loz - oz[r]) * ivz[r];
+                    const float tz1 = (hiz - oz[r]) * ivz[r];
+                    const float tn = nan_max(
+                        nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
+                        nan_max(nan_min(tz0, tz1), tmin[r]));
+                    const float tf = nan_min(
+                        nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
+                        nan_min(nan_max(tz0, tz1), bt[r]));
+                    const bool hit = ((live >> r) & 1u) && tn <= tf;
+                    lane_hits |= hit ? 1u << j : 0u;
+                    lane_min[j] =
+                        hit ? min(lane_min[j], ordered(tn)) : lane_min[j];
                 }
             }
-            __syncthreads();
             // the packet's verdict per slot, and the nearest by a strict <
             // scan over ascending slots (the lowest slot wins ties)
-            uint32_t hit_mask = 0;
+            const uint32_t hit_mask = __reduce_or_sync(kFull, lane_hits);
             float near_key = __int_as_float(0x7f800000);  // +inf
             int near_slot = 0;
 #pragma unroll
             for (int j = 0; j < kWidth; ++j) {
-                float key = kBig;
-                if (rec[j] <= rec[24 + j] && ((pmask >> j) & 1u)) {
-                    uint32_t any = 0;
-                    int32_t m = warp_min[0][j];
-#pragma unroll
-                    for (int w = 0; w < kWarps; ++w) {
-                        any |= warp_hits[w][j];
-                        m = min(m, warp_min[w][j]);
-                    }
-                    if (any != 0) {
-                        key = from_ordered(m);
-                        hit_mask |= 1u << j;
-                    }
-                }
+                const float key =
+                    from_ordered(__reduce_min_sync(kFull, lane_min[j]));
                 if (key < near_key) {
                     near_key = key;
                     near_slot = j;
-                    near_code = __float_as_int(rec[48 + j]);
                 }
             }
+            near_code = __float_as_int(rec[48 + near_slot]);
             any_child = near_key < kBig;
             rest_mask = hit_mask & ~(1u << near_slot);
-        } else {
-            // ---- leaf: each live ray tests the 12 triangles ----
-            float ck = __int_as_float(0x7f800000);
-            int32_t ctid = 0;
-            float cu = 0.0f, cv = 0.0f;
-            if (live) {
-#pragma unroll 4
-                for (int s = 0; s < kLeafSize; ++s) {
-                    const float v0x = rec[s], v0y = rec[kLeafSize + s];
-                    const float v0z = rec[2 * kLeafSize + s];
-                    const float e1x = rec[3 * kLeafSize + s];
-                    const float e1y = rec[4 * kLeafSize + s];
-                    const float e1z = rec[5 * kLeafSize + s];
-                    const float e2x = rec[6 * kLeafSize + s];
-                    const float e2y = rec[7 * kLeafSize + s];
-                    const float e2z = rec[8 * kLeafSize + s];
-                    int32_t id = __float_as_int(rec[9 * kLeafSize + s]);
-                    if (strip_alpha && id >= 0) id &= ~kAlphaTidBit;
-                    const float px = dy * e2z - dz * e2y;
-                    const float py = dz * e2x - dx * e2z;
-                    const float pz = dx * e2y - dy * e2x;
+        } else if (live != 0) {
+            // ---- leaf: each live ray tests the 12 triangles, each held
+            // against its best t from before the leaf; ck is the least
+            // candidate t so far (a strict <: the lowest slot wins ties) ----
+            float ck[kRays];
+#pragma unroll
+            for (int r = 0; r < kRays; ++r)
+                ck[r] = __int_as_float(0x7f800000);  // +inf
+#pragma unroll 1
+            for (int s = 0; s < kLeafSize; ++s) {
+                const float v0x = rec[s], v0y = rec[kLeafSize + s];
+                const float v0z = rec[2 * kLeafSize + s];
+                const float e1x = rec[3 * kLeafSize + s];
+                const float e1y = rec[4 * kLeafSize + s];
+                const float e1z = rec[5 * kLeafSize + s];
+                const float e2x = rec[6 * kLeafSize + s];
+                const float e2y = rec[7 * kLeafSize + s];
+                const float e2z = rec[8 * kLeafSize + s];
+                int32_t tid = __float_as_int(rec[9 * kLeafSize + s]);
+                if (strip_alpha && tid >= 0) tid &= ~kAlphaTidBit;
+                if (tid < 0) continue;  // an empty slot (warp-uniform)
+#pragma unroll
+                for (int r = 0; r < kRays; ++r) {
+                    if (r >= rows) break;
+                    const float px = dy[r] * e2z - dz[r] * e2y;
+                    const float py = dz[r] * e2x - dx[r] * e2z;
+                    const float pz = dx[r] * e2y - dy[r] * e2x;
                     const float det = e1x * px + e1y * py + e1z * pz;
                     const bool det_ok = fabsf(det) > kEps;
                     const float inv_det =
                         det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
-                    const float sx = ox - v0x;
-                    const float sy = oy - v0y;
-                    const float sz = oz - v0z;
+                    const float sx = ox[r] - v0x;
+                    const float sy = oy[r] - v0y;
+                    const float sz = oz[r] - v0z;
                     const float u = (sx * px + sy * py + sz * pz) * inv_det;
                     const float qx = sy * e1z - sz * e1y;
                     const float qy = sz * e1x - sx * e1z;
                     const float qz = sx * e1y - sy * e1x;
-                    const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+                    const float v =
+                        (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv_det;
                     const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-                    // every slot is held against the best t from before the
-                    // leaf
-                    const bool ok = id >= 0 && det_ok && u >= 0.0f
-                                    && v >= 0.0f && u + v <= 1.0f
-                                    && t >= tmin && t < prune_t;
-                    const float key = ok ? t : kBig;
-                    if (key < ck) {
-                        ck = key;
-                        ctid = id;
-                        cu = u;
-                        cv = v;
+                    // a candidate below the "no hit" key, nearer than the
+                    // last: the slot the plain version's min picks
+                    if (((live >> r) & 1u) && det_ok && u >= 0.0f
+                        && v >= 0.0f && u + v <= 1.0f && t >= tmin[r]
+                        && t < bt[r] && t < kBig && t < ck[r]) {
+                        ck[r] = t;
+                        btri[r] = tid;
+                        // + 0.0f: -0 becomes +0, as the reference's masked
+                        // sum gives
+                        bu[r] = u + 0.0f;
+                        bv[r] = v + 0.0f;
                     }
                 }
             }
-            if (ck < kBig) {
-                best.t = ck;
-                best.tri = ctid;
-                // + 0.0f: -0 becomes +0, as the reference's masked sum gives
-                best.u = cu + 0.0f;
-                best.v = cv + 0.0f;
+#pragma unroll
+            for (int r = 0; r < kRays; ++r) {
+                if (!(ck[r] < kBig)) continue;
+                bt[r] = ck[r];
+                if (kFirstHit) {
+                    // the ray has its hit and stops walking
+                    const int64_t i = base + id[r];
+                    out_t[i] = bt[r];
+                    out_tri[i] = btri[r];
+                    out_u[i] = bu[r];
+                    out_v[i] = bv[r];
+                    live &= ~(1u << r);
+                }
             }
         }
 
-        // ---- the walk state, by thread 0: ONE (node, mask) push when
-        // siblings remain; descend the nearest child, else pop ----
-        const bool all_found =
-            kFirstHit && !__syncthreads_or(act && best.tri < 0);
-        if (threadIdx.x == 0) {
-            if (!is_leaf && any_child && rest_mask != 0) {
-                if (sp < stack_depth) {
-                    snode[sp] = cur;
-                    smask[sp] = rest_mask;
+        // ---- the walk state: ONE (node, mask) push when siblings remain;
+        // descend the nearest child, else pop ----
+        if (!is_leaf && any_child && rest_mask != 0) {
+            if (sp < stack_depth && lane == (sp & 31)) {
+                if (sp < 32) {
+                    node0 = cur;
+                    mask0 = rest_mask;
+                } else {
+                    node1 = cur;
+                    mask1 = rest_mask;
                 }
-                ++sp;
             }
-            int32_t next = done;
-            uint32_t next_mask = (1u << kWidth) - 1u;
-            if (!is_leaf && any_child) {
-                next = near_code;
-            } else if (sp > 0) {
-                const int top = sp - 1;
-                next = top < stack_depth ? snode[top] : 0;
-                next_mask = top < stack_depth ? smask[top] : 0u;
-                sp = top;
-            }
-            if (all_found) {
-                next = done;  // every active ray has found a hit
-                sp = 0;
-            }
-            walk_cur = next;
-            walk_mask = next_mask;
+            ++sp;
         }
-        __syncthreads();
-        cur = walk_cur;
-        pmask = walk_mask;
+        uint32_t next_mask = kAllSlots;
+        if (!is_leaf && any_child) {
+            cur = near_code;
+        } else if (sp > 0) {
+            const int top = sp - 1;
+            if (top < stack_depth) {
+                cur = __shfl_sync(kFull, top < 32 ? node0 : node1, top & 31);
+                next_mask = __shfl_sync(kFull, top < 32 ? mask0 : mask1,
+                                        top & 31);
+            } else {
+                cur = 0;
+                next_mask = 0u;
+            }
+            sp = top;
+        } else {
+            cur = done;
+        }
+        pmask = next_mask;
+        if (kFirstHit && is_leaf) {
+            const int n = __reduce_add_sync(kFull, __popc(live));
+            if (n == 0) {
+                cur = done;  // every active ray has found a hit
+                sp = 0;
+            } else if ((n + 31) / 32 < rows) {
+                compact();
+            }
+        }
     }
 
-    out_t[i] = best.t;
-    out_tri[i] = best.tri;
-    out_u[i] = best.u;
-    out_v[i] = best.v;
+    // closest hit: every ray's hit (a miss keeps t_max and -1); any hit:
+    // the rays still live are misses
+#pragma unroll
+    for (int r = 0; r < kRays; ++r) {
+        if (kFirstHit && !(r < rows && ((live >> r) & 1u))) continue;
+        const int64_t i = base + id[r];
+        out_t[i] = bt[r];
+        out_tri[i] = btri[r];
+        out_u[i] = bu[r];
+        out_v[i] = bv[r];
+    }
 }
 
 template <bool kFirstHit>
@@ -306,10 +415,12 @@ cudaError_t launch(cudaStream_t stream, int64_t packets, const float* table,
                    const float* d, const float* inv_d, const float* t_min,
                    const float* t_max, const uint8_t* active, float* out_t,
                    int32_t* out_tri, float* out_u, float* out_v) {
+    const int64_t blocks = (packets + kWarps - 1) / kWarps;
     packet_kernel<kFirstHit>
-        <<<static_cast<unsigned>(packets), kPacket, 0, stream>>>(
+        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
             table, done, root_code, stack_depth, max_iters, strip_alpha, o, d,
-            inv_d, t_min, t_max, active, out_t, out_tri, out_u, out_v);
+            inv_d, t_min, t_max, active, packets, out_t, out_tri, out_u,
+            out_v);
     return cudaGetLastError();
 }
 
@@ -345,4 +456,16 @@ extern "C" int dxrpt_packet_traverse(const float* table, int32_t num_rows,
                                   inv_d, t_min, t_max, active, out_t, out_tri,
                                   out_u, out_v);
     return static_cast<int>(err);
+}
+
+// Warps of the closest-hit (first_hit 0) or any-hit kernel that one SM of the
+// current device holds at once, or minus the CUDA error code.
+extern "C" int dxrpt_packet_resident_warps(int32_t first_hit) {
+    int blocks = 0;
+    const cudaError_t err =
+        first_hit ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &blocks, packet_kernel<true>, kWarps * 32, 0)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &blocks, packet_kernel<false>, kWarps * 32, 0);
+    return err != cudaSuccess ? -static_cast<int>(err) : blocks * kWarps;
 }

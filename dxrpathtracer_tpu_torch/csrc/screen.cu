@@ -15,13 +15,27 @@
 // each lane reads its ray once (33 B) and writes one byte. A lane tests up
 // to K triangles at 54 f32 operations each, or C boxes at 29, so the work
 // is operations, not bytes: at most K * 54 per lane, fewer where a lane
-// stops early.
+// stops early. On the frame's terminal rays most lanes are blocked by one
+// of the first few triangles and the rest need all K.
 //
-// What the design does about it. One thread per lane; the block first copies
-// the triangle or box columns into shared memory, where every thread of a
-// warp then reads the same word (a broadcast, no bank conflicts). A lane
-// stops at the first blocking triangle or the first box it may overlap: the
-// result is an any-reduction, so the rest cannot change it.
+// What the design does about it. The block first copies the triangle or
+// box columns into shared memory (the one block barrier), where lanes read
+// them as broadcasts or, in the proxy's second phase, as consecutive words
+// (no bank conflicts). A lane's verdict is an any-reduction, so a lane may
+// stop at the first blocking triangle or the first box it may overlap, and
+// the order of the tests cannot change it.
+//  - The cut: one thread per lane, each box in turn.
+//  - The proxy: a warp runs as long as its slowest lane, and a lane that no
+//    triangle blocks tests all K, so one thread per lane over K keeps most
+//    of a warp idle behind its unblocked lanes. Two phases in one launch
+//    instead. Phase 1: each active lane tests its own ray against the first
+//    kPhase1 triangles, which are the largest (the proxy is sorted by area),
+//    so most blocked lanes stop there. Phase 2: the warp takes its active
+//    lanes that are still undecided (a ballot), one ray at a time; lane l
+//    tests triangles kPhase1 + l, kPhase1 + l + 32, ..., and the warp stops
+//    that ray at the first round in which some lane finds a blocker
+//    (__any_sync). Inactive lanes never enter it. kPhase1 = 16 measured
+//    faster than 32 on the H100 (PERF.md).
 //
 // Exactness. Build with --fmad=false and without fast-math: every product is
 // rounded on its own and the division is IEEE, as in the plain torch version
@@ -38,6 +52,10 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr float kEps = 1e-12f;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// proxy triangles a lane tests on its own before its warp shares out the
+// rest (phase 1)
+constexpr int kPhase1 = 16;
 
 __device__ __forceinline__ float nan_min(float a, float b) {
     float r;
@@ -51,6 +69,38 @@ __device__ __forceinline__ float nan_max(float a, float b) {
     return r;
 }
 
+struct Segment {
+    float ox, oy, oz, dx, dy, dz, tmin, tmax;
+};
+
+// Whether column j of `cols` (9 rows of k) blocks the segment:
+// Moller-Trumbore as the plain version computes it.
+__device__ __forceinline__ bool proxy_hit(const float* cols, int k, int j,
+                                          const Segment& r) {
+    const float v0x = cols[j], v0y = cols[k + j], v0z = cols[2 * k + j];
+    const float e1x = cols[3 * k + j], e1y = cols[4 * k + j];
+    const float e1z = cols[5 * k + j];
+    const float e2x = cols[6 * k + j], e2y = cols[7 * k + j];
+    const float e2z = cols[8 * k + j];
+    const float px = r.dy * e2z - r.dz * e2y;
+    const float py = r.dz * e2x - r.dx * e2z;
+    const float pz = r.dx * e2y - r.dy * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const bool det_ok = fabsf(det) > kEps;
+    const float inv_det = det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
+    const float sx = r.ox - v0x;
+    const float sy = r.oy - v0y;
+    const float sz = r.oz - v0z;
+    const float u = (sx * px + sy * py + sz * pz) * inv_det;
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+    return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
+           && t >= r.tmin && t < r.tmax;
+}
+
 // tris: (9, k) f32 columns v0x v0y v0z e1x e1y e1z e2x e2y e2z.
 __global__ void __launch_bounds__(kBlock)
 proxy_kernel(const float* __restrict__ tris, int k,
@@ -61,43 +111,43 @@ proxy_kernel(const float* __restrict__ tris, int k,
     extern __shared__ float cols[];
     for (int j = threadIdx.x; j < 9 * k; j += blockDim.x) cols[j] = tris[j];
     __syncthreads();
+    const int lane = threadIdx.x & 31;
     const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
-    if (i >= n) return;
-    if (!active[i]) {
-        out[i] = 0;
-        return;
-    }
-    const float ox = ray_o[3 * i], oy = ray_o[3 * i + 1], oz = ray_o[3 * i + 2];
-    const float dx = ray_d[3 * i], dy = ray_d[3 * i + 1], dz = ray_d[3 * i + 2];
-    const float tmin = t_min[i], tmax = t_max[i];
+    // every lane of the warp stays to the end: phase 2 needs all 32
+    const bool act = i < n && active[i] != 0;
+    Segment mine{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (act)
+        mine = Segment{ray_o[3 * i], ray_o[3 * i + 1], ray_o[3 * i + 2],
+                       ray_d[3 * i], ray_d[3 * i + 1], ray_d[3 * i + 2],
+                       t_min[i], t_max[i]};
+    // phase 1: the lane's own ray against the first triangles
+    const int head = min(k, kPhase1);
     bool blocked = false;
-    for (int j = 0; j < k && !blocked; ++j) {
-        const float v0x = cols[j], v0y = cols[k + j], v0z = cols[2 * k + j];
-        const float e1x = cols[3 * k + j], e1y = cols[4 * k + j];
-        const float e1z = cols[5 * k + j];
-        const float e2x = cols[6 * k + j], e2y = cols[7 * k + j];
-        const float e2z = cols[8 * k + j];
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool det_ok = fabsf(det) > kEps;
-        const float inv_det =
-            det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
-        const float sx = ox - v0x;
-        const float sy = oy - v0y;
-        const float sz = oz - v0z;
-        const float u = (sx * px + sy * py + sz * pz) * inv_det;
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        blocked = det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
-                  && t >= tmin && t < tmax;
+    if (act)
+        for (int j = 0; j < head && !blocked; ++j)
+            blocked = proxy_hit(cols, k, j, mine);
+    // phase 2: the warp, one undecided ray at a time, 32 triangles a round
+    uint32_t todo = __ballot_sync(kFull, act && !blocked && k > head);
+    while (todo != 0) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const Segment r{__shfl_sync(kFull, mine.ox, src),
+                        __shfl_sync(kFull, mine.oy, src),
+                        __shfl_sync(kFull, mine.oz, src),
+                        __shfl_sync(kFull, mine.dx, src),
+                        __shfl_sync(kFull, mine.dy, src),
+                        __shfl_sync(kFull, mine.dz, src),
+                        __shfl_sync(kFull, mine.tmin, src),
+                        __shfl_sync(kFull, mine.tmax, src)};
+        bool hit = false;
+        for (int base = head; base < k && !hit; base += 32) {
+            const int j = base + lane;
+            hit = __any_sync(kFull, j < k && proxy_hit(cols, k, j, r));
+        }
+        if (lane == src) blocked = hit;
     }
-    out[i] = blocked ? 1 : 0;
+    if (i < n) out[i] = blocked ? 1 : 0;
 }
 
 // boxes: (6, c) f32 columns lox loy loz hix hiy hiz.
@@ -184,4 +234,18 @@ extern "C" int dxrpt_cut_clear(const float* boxes, int32_t c,
                  static_cast<cudaStream_t>(stream)>>>(
         boxes, c, ray_o, ray_d, t_min, t_max, active, n, out);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Warps of the proxy (proxy 1, with k columns) or cut (proxy 0, with k
+// boxes) kernel that one SM of the current device holds at once, or minus
+// the CUDA error code.
+extern "C" int dxrpt_screen_resident_warps(int32_t proxy, int32_t k) {
+    int blocks = 0;
+    const cudaError_t err =
+        proxy ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, proxy_kernel, kBlock, 9 * k * sizeof(float))
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, cut_kernel, kBlock, 6 * k * sizeof(float));
+    return err != cudaSuccess ? -static_cast<int>(err)
+                              : blocks * (kBlock / 32);
 }

@@ -1,5 +1,7 @@
 """Adversarial inputs for the BVH walk: scenes and rays whose walks reach
-every tie rule of the traversal. numpy only, made from a seed.
+every tie rule of the traversal. numpy only (but for the two helpers that
+run the port, `alpha_case_scene` and `packet_stack_height`), made from a
+seed.
 
 Two cases, each a triangle scene (v0, v1, v2: (T, 3) float32) and a ray set
 (o, d: (N, 3) float32; tmin, tmax: (N,) float32; active: (N,) bool):
@@ -35,6 +37,23 @@ opaque, material 1 alpha-tested), its opacity mask and rays:
     at equal t;
   - "alpha_edge_on": a card seen edge-on and at grazing angles.
 Used by tests/test_torch_alpha.py and chip_smoke.py.
+
+The engines' edge cases (tests/test_torch_packet.py, tests/test_torch_proxy.py
+and chip_smoke.py E1):
+
+  - `packet_edge_cases`, for the 128-ray packet walk on a given W8 table:
+    a packet with no active ray (beside a full one) and packets with one
+    active ray (at lanes 0, 77 and 127), their rays from the centre of the
+    scene in every direction, a packet whose rays all hit in the
+    first leaf the walk reaches (any hit ends there), and a packet that
+    reaches the deepest stack the table needs (rays in every direction from
+    the box of its deepest leaf; `packet_stack_height` measures it on the
+    plain walk); `pad_to_packets` pads a ray set with inactive rays to
+    whole packets;
+  - `proxy_edge_rays`, for the dense-proxy screen: n not a multiple of 32,
+    a fifth inactive, t_max <= t_min on some lanes, and axis-aligned
+    directions whose zero components are +0 or -0; with `soup` and the
+    BoxTest scene they give K = 8, 24 and 1,365 (the kernel's most).
 """
 
 import numpy as np
@@ -45,6 +64,8 @@ CUBE_LO = np.array([-2.0, 1.0, -2.0], np.float32)   # the block of cubes
 CUBE_DIMS = (4, 2, 4)
 FLOOR_HALF = 8                                       # floor spans [-8, 8]^2
 REPEATED = 64                                        # triangles, 3 copies each
+PACKET = 128                                         # rays per packet
+RAY_FIELDS = ("o", "d", "tmin", "tmax", "active")
 
 
 def soup(seed=0, m=2500):
@@ -270,3 +291,171 @@ def cases(seed=0):
     scene = tie_scene(seed)
     return {"ties": (scene, tie_rays(scene, seed + 1)),
             "soup": (soup(seed), soup_rays(seed + 5))}
+
+
+# ---------------------------------------------------------------------------
+# The engines' edge cases
+# ---------------------------------------------------------------------------
+
+def pad_to_packets(rays):
+    """`rays` with inactive rays (copies of the first) appended up to a
+    whole number of packets."""
+    n = len(rays["o"])
+    pad = -n % PACKET
+    out = {f: np.concatenate([rays[f], np.repeat(rays[f][:1], pad, 0)])
+           for f in RAY_FIELDS}
+    out["active"][n:] = False
+    return out
+
+
+def _children(table, row):
+    """[(slot, code, lo, hi)] of the filled slots of internal record `row`."""
+    rec = table[row]
+    codes = rec[48:56].view(np.int32)
+    lo, hi = rec[0:24].reshape(3, 8), rec[24:48].reshape(3, 8)
+    return [(j, int(codes[j]), lo[:, j], hi[:, j]) for j in range(8)
+            if rec[j] <= rec[24 + j]]
+
+
+def _leaves(table, root_code):
+    """[(leaf row, internal depth, box lo, box hi, path)] of every leaf of
+    a W8 table, the path a list of (internal row, slot) from the root."""
+    if root_code < 0:
+        return [(~root_code, 0, None, None, [])]
+    out, todo = [], [(root_code, [])]
+    while todo:
+        row, path = todo.pop()
+        for j, code, lo, hi in _children(table, row):
+            step = path + [(row, j)]
+            if code < 0:
+                out.append((~code, len(step), lo, hi, step))
+            else:
+                todo.append((code, step))
+    return out
+
+
+def _sole_descent(table, path, point):
+    """Whether `point` lies in the box of the path's slot at every level
+    and in no sibling's box: a walk from it with t_min 0 enters that slot
+    first at every level (its entry t, 0, is the one least)."""
+    for row, slot in path:
+        inside = [j for j, _, lo, hi in _children(table, row)
+                  if np.all(lo <= point) and np.all(point <= hi)]
+        if inside != [slot]:
+            return False
+    return True
+
+
+def _packet(o, d):
+    """A packet of rays from the point o along the unit directions d, all
+    active, t in [0, 1e30)."""
+    n = len(d)
+    return dict(o=np.broadcast_to(np.float32(o), (n, 3)).astype(np.float32),
+                d=np.asarray(d, np.float32), tmin=np.zeros(n, np.float32),
+                tmax=np.full(n, 1e30, np.float32), active=np.ones(n, bool))
+
+
+def _first_leaf_packet(table, root_code, v0, v1, v2, rng):
+    """A packet from one point whose walk enters, nearest first, the leaf
+    of one of its triangles before any other leaf; every ray aims at an
+    interior point of that triangle, so every ray hits in that leaf."""
+    e1, e2 = v1 - v0, v2 - v0
+    for row, _, _, _, path in sorted(_leaves(table, root_code),
+                                     key=lambda x: x[1]):
+        ids = table[row, 108:120].view(np.int32)
+        for tid in ids[ids >= 0] & ~(1 << 30):
+            n = np.cross(e1[tid], e2[tid]).astype(np.float64)
+            area = np.linalg.norm(n)
+            if area < 1e-6:
+                continue
+            c = (v0[tid] + (e1[tid] + e2[tid]) / 3.0).astype(np.float64)
+            for h in (1e-2, 1e-3, 1e-4):
+                o = (c + n / area * h * np.sqrt(area)).astype(np.float32)
+                if not _sole_descent(table, path, o):
+                    continue
+                w = rng.dirichlet(np.ones(3) * 4.0, PACKET)
+                w = 0.1 + 0.7 * w  # interior barycentrics, clear of edges
+                w /= w.sum(1, keepdims=True)
+                p = (w[:, :1] * v0[tid] + w[:, 1:2] * v1[tid]
+                     + w[:, 2:] * v2[tid]).astype(np.float64)
+                d = p - o
+                d /= np.linalg.norm(d, axis=1, keepdims=True)
+                return _packet(o, d)
+    raise ValueError("no triangle's leaf is the sole first descent")
+
+
+def deepest_leaf(table, root_code):
+    """(internal depth, box centre) of the deepest leaf of a W8 table."""
+    leaves = _leaves(table, root_code)
+    _, depth, lo, hi, _ = max(leaves, key=lambda x: x[1])
+    if lo is None:
+        return 0, np.zeros(3, np.float32)
+    return depth, ((lo.astype(np.float64) + hi) / 2).astype(np.float32)
+
+
+def packet_edge_cases(v0, v1, v2, table, root_code, seed=0):
+    """{name: rays} of the packet walk's edge cases on a W8 table (a
+    (rows, 128) float32 array) over triangles v0, v1, v2; each a whole
+    number of packets (see the module docstring)."""
+    rng = np.random.default_rng(seed)
+    table = np.asarray(table, np.float32)
+    v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
+    lo = np.minimum(np.minimum(v0, v1), v2).min(0)
+    hi = np.maximum(np.maximum(v0, v1), v2).max(0)
+    # rays from the centre of the scene's box in every direction
+    eye = (lo + hi) / 2
+    d = _unit(rng, 3 * PACKET)
+    full = _packet(eye, d[:2 * PACKET])
+    full["active"][:PACKET] = False
+    one = _packet(eye, d)
+    one["active"][:] = False
+    one["active"][[0, PACKET + 77, 3 * PACKET - 1]] = True
+    _, deep_o = deepest_leaf(table, root_code)
+    return {"no_active": full, "one_active": one,
+            "first_leaf": _first_leaf_packet(table, root_code, v0, v1, v2,
+                                             rng),
+            "deep_stack": _packet(deep_o, _unit(rng, PACKET))}
+
+
+def proxy_edge_rays(seed=0, n=4109):
+    """Rays for the proxy screen's edge cases around the soup (see the
+    module docstring): random and axis-aligned rays (signed zeros), mixed
+    limits with t_max <= t_min on some lanes, a fifth inactive."""
+    rng = np.random.default_rng(seed)
+    m = n // 4
+    o = (rng.standard_normal((n, 3)) * 5).astype(np.float32)
+    d = _unit(rng, n)
+    axis = rng.integers(0, 3, m)
+    d_ax = np.zeros((m, 3), np.float32)
+    d_ax[np.arange(m), axis] = rng.choice(np.float32([-1.0, 1.0]), m)
+    d[:m] = _signed_zeros(rng, d_ax)
+    tmin, tmax, active = _limits(rng, n)
+    # t_max <= t_min: equal on some lanes, below on others
+    bad = rng.random(n) < 0.1
+    tmax = np.where(bad, np.where(rng.random(n) < 0.5, tmin,
+                                  tmin - np.float32(0.25)), tmax)
+    return dict(o=o, d=d, tmin=tmin, tmax=tmax.astype(np.float32),
+                active=active)
+
+
+def packet_stack_height(bvh, rays, first_hit=False):
+    """The most (node, mask) entries a packet of `rays` (o, d, t_min, t_max,
+    active tensors) holds in the plain packet walk on `bvh`."""
+    from ..accel import packet, traverse
+    most = 0
+    step = packet.stack_step
+
+    def recording(*args):
+        nonlocal most
+        out = step(*args)
+        most = max(most, int(out[2].max()))  # (cur, pmask, sp, ...)
+        return out
+
+    o, d, tmin, tmax, act = rays
+    packet.stack_step = recording
+    try:
+        packet.packet_traverse_plain(bvh, o, d, traverse.safe_inv(d), tmin,
+                                     tmax, act, first_hit)
+    finally:
+        packet.stack_step = step
+    return most

@@ -6,10 +6,13 @@ the engines-on frame, against dxrpathtracer_tpu.
     on the CPU) against the JAX package's packet_closest_hit and
     packet_any_hit on the same W8 tables: t, tri id, u and v bit-equal,
     visibility equal, on the adversarial ties case of
-    dxrpathtracer_tpu_torch/tools/traverse_cases.py and on a seeded soup
-    with both incoherent rays and camera-like packets (the JAX side in a
-    subprocess whose XLA:CPU emits no FMA, as tests/test_torch_traverse.py
-    runs it).
+    dxrpathtracer_tpu_torch/tools/traverse_cases.py, on a seeded soup
+    with both incoherent rays and camera-like packets, and on the packet
+    edge cases of traverse_cases.packet_edge_cases on the soup's port-built
+    W8 table (a packet with no active ray, packets with one, a packet whose
+    rays all hit in the first leaf, a packet that reaches the table's
+    deepest stack; the JAX side in a subprocess whose XLA:CPU emits no FMA,
+    as tests/test_torch_traverse.py runs it).
   - Against the port's per-ray walk: t bit-equal on every lane of the soup
     (the lanes whose triangle differs, equal-t ties, are counted); on the
     ties case, rays along box faces may find a nearer hit than the per-ray
@@ -38,6 +41,7 @@ from dxrpathtracer_tpu_torch.accel import (packet, proxy, sunspace,  # noqa: E40
                                            traverse)
 from dxrpathtracer_tpu_torch.app.session import RenderSession  # noqa: E402
 from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes  # noqa: E402
+from dxrpathtracer_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from dxrpathtracer_tpu_torch.convert import bvh_from_numpy  # noqa: E402
 from dxrpathtracer_tpu_torch.render import integrator  # noqa: E402
 from dxrpathtracer_tpu_torch.tools import traverse_cases  # noqa: E402
@@ -76,13 +80,31 @@ def _cases():
                                  for f in RAY_FIELDS})}
 
 
+EDGE_CASES = ("no_active", "one_active", "first_leaf", "deep_stack")
+
+
+def _edges():
+    """The port's W8 table of the soup and its packet edge cases: (bvh,
+    {name: rays}, {name: slice of the concatenated rays})."""
+    tris = traverse_cases.cases(0)["soup"][0]
+    bvh = build_bvh(*tris, width=8)
+    cases = traverse_cases.packet_edge_cases(*tris, bvh.table.numpy(),
+                                             bvh.root_code)
+    slices, at = {}, 0
+    for name in EDGE_CASES:
+        n = len(cases[name]["o"])
+        slices[name] = slice(at, at + n)
+        at += n
+    return bvh, cases, slices
+
+
 _SCRIPT = r"""
 import sys
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
-from dxrpathtracer_tpu.accel.lbvh import build_bvh
+from dxrpathtracer_tpu.accel.lbvh import FlatBVH, build_bvh
 from dxrpathtracer_tpu.accel.packet import packet_any_hit, packet_closest_hit
 from dxrpathtracer_tpu.app.session import RenderSession
 from dxrpathtracer_tpu.app.settings import AppSettings, Scenes
@@ -92,10 +114,15 @@ inp = dict(np.load(sys.argv[1]))
 out = {}
 for case in sorted({k.split("__")[0] for k in inp if "__" in k}):
     g = lambda f: inp[case + "__" + f]
-    bvh = build_bvh(g("v0"), g("v1"), g("v2"), width=8)
-    out[case + "__table"] = np.asarray(bvh.table)
-    out[case + "__const"] = np.asarray([bvh.num_rows, bvh.max_depth,
-                                        bvh.root_code])
+    if case == "edges":  # the port's table, given
+        c = g("const")
+        bvh = FlatBVH(table=jnp.asarray(g("table")), num_rows=int(c[0]),
+                      max_depth=int(c[1]), root_code=int(c[2]), width=8)
+    else:
+        bvh = build_bvh(g("v0"), g("v1"), g("v2"), width=8)
+        out[case + "__table"] = np.asarray(bvh.table)
+        out[case + "__const"] = np.asarray([bvh.num_rows, bvh.max_depth,
+                                            bvh.root_code])
     rays = [jnp.asarray(g(f)) for f in ("o", "d", "tmin", "tmax", "active")]
     rec = jax.jit(packet_closest_hit)(bvh, *rays)
     for f in ("t", "tri_id", "u", "v"):
@@ -130,6 +157,13 @@ def reference(tmp_path_factory):
     for name, ((v0, v1, v2), rays) in _cases().items():
         for f, a in (("v0", v0), ("v1", v1), ("v2", v2), *rays.items()):
             inputs[name + "__" + f] = np.asarray(a)
+    bvh, cases, _ = _edges()
+    inputs["edges__table"] = bvh.table.numpy()
+    inputs["edges__const"] = np.asarray([bvh.num_rows, bvh.max_depth,
+                                         bvh.root_code])
+    for f in RAY_FIELDS:
+        inputs["edges__" + f] = np.concatenate([cases[c][f]
+                                                for c in EDGE_CASES])
     src, dst = tmp / "in.npz", tmp / "out.npz"
     np.savez(src, **inputs)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
@@ -149,17 +183,59 @@ def _table_and_rays(reference, name):
                       for f in RAY_FIELDS)
 
 
-@pytest.mark.parametrize("name", ["soup", "ties"])
+def _edge_case(reference, name):
+    """The edge case's table, rays and JAX results ({field: array})."""
+    bvh, cases, slices = _edges()
+    rays = tuple(torch.from_numpy(np.ascontiguousarray(cases[name][f]))
+                 for f in RAY_FIELDS)
+    ref = {f: reference["edges__" + f][slices[name]]
+           for f in ("t", "tri_id", "u", "v", "vis")}
+    return bvh, rays, ref
+
+
+def _check_edge_case(bvh, rays, name):
+    """What the edge case is made to reach, by the plain walk's counts."""
+    o, d, tmin, tmax, act = rays
+    inv = traverse.safe_inv(d)
+    stats = {}
+    rec = packet.packet_traverse_plain(bvh, o, d, inv, tmin, tmax, act,
+                                       first_hit=True, stats=stats)
+    packets = act.reshape(-1, packet.PACKET).sum(dim=1)
+    if name == "no_active":
+        assert packets.tolist() == [0, packet.PACKET]
+        assert not bool(rec.hit[:packet.PACKET].any())
+    elif name == "one_active":
+        assert packets.tolist() == [1, 1, 1]
+    elif name == "first_leaf":
+        # any hit: every ray hits in the one leaf the packet visits
+        assert stats["leaf"] == 1 and bool(rec.hit.all())
+    else:
+        depth, _ = traverse_cases.deepest_leaf(bvh.table.numpy(),
+                                               bvh.root_code)
+        height = traverse_cases.packet_stack_height(bvh, rays)
+        assert height == depth <= bvh.stack_depth
+
+
+@pytest.mark.parametrize("name", ["soup", "ties", *EDGE_CASES])
 def test_plain_packet_walk_matches_jax_bit_for_bit(reference, name):
-    bvh, rays = _table_and_rays(reference, name)
+    if name in EDGE_CASES:
+        bvh, rays, ref = _edge_case(reference, name)
+        _check_edge_case(bvh, rays, name)
+    else:
+        bvh, rays = _table_and_rays(reference, name)
+        ref = {f: reference[name + "__" + f]
+               for f in ("t", "tri_id", "u", "v", "vis")}
     rec = packet.packet_closest_hit(bvh, *rays)
     for f in ("t", "tri_id", "u", "v"):
         np.testing.assert_array_equal(
-            getattr(rec, f).numpy().view(np.int32),
-            reference[name + "__" + f].view(np.int32), err_msg=f)
+            getattr(rec, f).numpy().view(np.int32), ref[f].view(np.int32),
+            err_msg=f)
     vis = packet.packet_any_hit(bvh, *rays)
-    np.testing.assert_array_equal(vis.numpy(), reference[name + "__vis"])
-    assert 0 < int(rec.hit.sum()) < rays[0].shape[0]
+    np.testing.assert_array_equal(vis.numpy(), ref["vis"])
+    if name in EDGE_CASES:
+        assert int(rec.hit.sum()) <= int(rays[4].sum())
+    else:
+        assert 0 < int(rec.hit.sum()) < rays[0].shape[0]
 
 
 @pytest.mark.parametrize("name", ["soup", "ties"])

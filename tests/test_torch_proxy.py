@@ -4,7 +4,10 @@ AABB-cut screens, csrc/screen.cu's module) against dxrpathtracer_tpu.
 On the CPU the port runs the kernels' plain versions. They are held
   - to the JAX package's proxy_blocked and cut_clear, bit for bit on every
     lane, on a seeded triangle soup and the adversarial ties scene of
-    dxrpathtracer_tpu_torch/tools/traverse_cases.py (the JAX side in a
+    dxrpathtracer_tpu_torch/tools/traverse_cases.py, and on the proxy's
+    edge cases (traverse_cases.proxy_edge_rays: K = 8 and K = 1,365 on the
+    soup, K = 24 on BoxTest; n not a multiple of 32, inactive lanes,
+    t_max <= t_min, zero and -0 direction components; the JAX side in a
     subprocess whose XLA:CPU emits no FMA, as tests/test_torch_traverse.py
     runs it, so both round every product);
   - to the per-ray walk: screened visibility equal to the unscreened walk,
@@ -54,6 +57,9 @@ def _indexed(v0, v1, v2):
 
 
 SCENES = ("boxtest", "soup", "ties")
+# the proxy's edge cases: (scene, K)
+EDGE_CASES = {"k8": ("soup", 8), "box_k24": ("boxtest", 128),
+              "k1365": ("soup", proxy.MAX_COLUMNS)}
 
 
 def _scene(name):
@@ -80,7 +86,7 @@ inp = dict(np.load(sys.argv[1]))
 out = {}
 for case in sorted({k.split("__")[0] for k in inp}):
     g = lambda f: inp[case + "__" + f]
-    px = proxy.build_dense_proxy(g("pos"), g("tri"), k=128)
+    px = proxy.build_dense_proxy(g("pos"), g("tri"), k=int(g("k")))
     cut = proxy.build_aabb_cut(g("pos"), g("tri"), c=128)
     rays = [jnp.asarray(g(f)) for f in ("o", "d", "tmin", "tmax", "active")]
     out[case + "__blocked"] = np.asarray(jax.jit(proxy.proxy_blocked)(px, *rays))
@@ -95,9 +101,10 @@ def reference(tmp_path_factory):
     FMA."""
     tmp = tmp_path_factory.mktemp("proxy_ref")
     inputs = {}
-    for case, (tris, rays) in traverse_cases.cases(0).items():
-        pos, tri = _indexed(*tris)
+    for case in (*traverse_cases.cases(0), *EDGE_CASES):
+        pos, tri, k, rays = _case(case)
         inputs[case + "__pos"], inputs[case + "__tri"] = pos, tri
+        inputs[case + "__k"] = np.asarray(k)
         for f in RAY_FIELDS:
             inputs[case + "__" + f] = rays[f]
     src, dst = tmp / "in.npz", tmp / "out.npz"
@@ -109,6 +116,17 @@ def reference(tmp_path_factory):
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return dict(np.load(dst))
+
+
+def _case(case):
+    """(positions, tri_idx, K, rays) of a case: the soup or ties scene with
+    its rays and K = 128, or an edge case's scene, K and rays."""
+    if case in EDGE_CASES:
+        scene, k = EDGE_CASES[case]
+        pos, tri, _ = _scene(scene)
+        return pos, tri, k, traverse_cases.proxy_edge_rays()
+    tris, rays = traverse_cases.cases(0)[case]
+    return (*_indexed(*tris), proxy.PROXY_K, rays)
 
 
 def _rays(case, n=None):
@@ -148,20 +166,31 @@ def test_probe_fraction_matches_jax(name):
     assert got == want
 
 
-@pytest.mark.parametrize("case", ["soup", "ties"])
+@pytest.mark.parametrize("case", ["soup", "ties", *EDGE_CASES])
 def test_plain_screens_match_jax_bit_for_bit(reference, case):
-    pos, tri = _indexed(*traverse_cases.cases(0)[case][0])
-    px = proxy.build_dense_proxy(pos, tri)
+    pos, tri, k, rays = _case(case)
+    px = proxy.build_dense_proxy(pos, tri, k=k)
     cut = proxy.build_aabb_cut(pos, tri)
-    rays = _rays(case)
+    rays = tuple(torch.from_numpy(np.ascontiguousarray(rays[f]))
+                 for f in RAY_FIELDS)
     blocked = proxy.proxy_blocked(px, *rays)
     clear = proxy.cut_clear(cut, *rays)
     np.testing.assert_array_equal(blocked.numpy(),
                                   reference[case + "__blocked"])
     np.testing.assert_array_equal(clear.numpy(), reference[case + "__clear"])
-    print(f"{case}: {int(blocked.sum())} blocked, {int(clear.sum())} clear "
-          f"of {rays[0].shape[0]}")
+    print(f"{case}: K {px.k}, {int(blocked.sum())} blocked, "
+          f"{int(clear.sum())} clear of {rays[0].shape[0]}")
     assert 0 < int(blocked.sum()) and 0 < int(clear.sum())
+    if case in EDGE_CASES:
+        o, d, tmin, tmax, act = rays
+        assert px.k == {"k8": 8, "box_k24": 24, "k1365": 1365}[case]
+        assert rays[0].shape[0] % 32 != 0
+        # inactive lanes and empty segments are never blocked; some lanes
+        # are active with a segment but unblocked
+        assert not bool(blocked[~act | (tmax <= tmin)].any())
+        assert bool((act & (tmax <= tmin)).any())
+        assert bool((act & ~blocked).any())
+        assert bool(((d == 0) & torch.signbit(d)).any())
 
 
 @pytest.mark.parametrize("case", ["soup", "ties"])
