@@ -91,7 +91,16 @@ front of the per-ray walks). Phases, each fatal on failure:
      plain walk's stack height must equal the deepest leaf's depth); the
      proxy at K = 8 and 1,365 (the soup) and 24 (BoxTest) on rays with n
      not a multiple of 32, inactive lanes, t_max <= t_min and +-0
-     direction components;
+     direction components; the grid walk on grid_edge_cases (cell
+     borders, origins outside the box or NaN, empty cells, thr on a
+     record's suffix- and own-zmax, the longest chain, t_max <= t_min,
+     inactive lanes, n = 37 and 1) of the grids of GRID_SCENES and of the
+     stand-in, each set in its own launch and all in one, never less
+     occluded than the per-ray walk; the grid's classes also carry the
+     plain walk's shape: record steps per active lane against the
+     longest lane of its 32-ray warp, lanes per distinct record of a
+     warp step, and the busiest of the kernel's persistent ranges (and
+     of the same fetches dealt out in turn) against the mean;
   E2. engines A/B: 10 timed frames after a first per configuration, the
      settings switched on that session: the stand-in with the engines on
      (the defaults) and off (the five fields), and with each of packets,
@@ -140,7 +149,11 @@ front of the per-ray walks). Phases, each fatal on failure:
      step (both > 0), peak device memory, and the ms of the median, guided
      and learned denoisers on the 4096^2 lightmap; the accumulation and
      every denoised map must be finite; per step the grid and the proxy
-     must launch, the packets and the cut not; then E2's bake: 3 steps
+     must launch, the packets and the cut not; then E1's bake classes:
+     the depth-1 and depth-2 sun calls of the slab (of one step's eight)
+     whose depth-1 class has the most active rays, the grid kernel against
+     its plain version and the per-ray walk as on the frame's class, with
+     its times, bound and walk shape; then E2's bake: 3 steps
      with the grid and proxy (the defaults) and 3 without, each from an
      empty accumulation: s/step, launches, the accumulations equal within
      rel-RMSE 1e-4;
@@ -463,18 +476,19 @@ def phase_build():
     secs["traverse_kernels"] = {instance_name(k): row
                                 for k, row in kernels.items()}
     engines = {}
-    warps = engine_resident_warps(packet, proxy)
+    warps = engine_resident_warps(packet, sunspace, proxy)
     for lib in (packet, sunspace, proxy):
         for name, row in ptxas_entries(lib.BUILD_LOG).items():
             if name in warps:
                 row["resident_warps_per_sm"] = warps[name]
             engines[name] = row
             log(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
-            # one warp per packet: the stack lives in registers
-            if name.startswith("packet") and (row["stack_frame_bytes"]
-                                              or row["spill_stores"]
-                                              or row["spill_loads"]):
-                raise SystemExit(f"chip_smoke: the packet kernel uses local "
+            # one warp per packet: the stack lives in registers; the grid
+            # walk keeps its rays and records in registers
+            if (name.startswith("packet") or name == "sun_any_hit") and (
+                    row["stack_frame_bytes"] or row["spill_stores"]
+                    or row["spill_loads"]):
+                raise SystemExit(f"chip_smoke: the {name} kernel uses local "
                                  f"memory: {row}")
     want = {"packet_closest", "packet_any", "sun_any_hit", "proxy_blocked",
             "cut_clear"}
@@ -485,10 +499,11 @@ def phase_build():
     return secs
 
 
-def engine_resident_warps(packet, proxy):
-    """{kernel: warps one SM holds at once} of the packet kernels and the
-    screens (the proxy at PROXY_K columns, the cut at CUT_C boxes), by the
-    occupancy queries of csrc/packet.cu and csrc/screen.cu."""
+def engine_resident_warps(packet, sunspace, proxy):
+    """{kernel: warps one SM holds at once} of the packet kernels, the grid
+    walk and the screens (the proxy at PROXY_K columns, the cut at CUT_C
+    boxes), by the occupancy queries of csrc/packet.cu, csrc/sungrid.cu and
+    csrc/screen.cu."""
     import ctypes
     plib, slib = packet.kernel_library(), proxy.kernel_library()
     plib.dxrpt_packet_resident_warps.argtypes = [ctypes.c_int32]
@@ -496,6 +511,7 @@ def engine_resident_warps(packet, proxy):
                                                  ctypes.c_int32]
     out = {"packet_closest": plib.dxrpt_packet_resident_warps(0),
            "packet_any": plib.dxrpt_packet_resident_warps(1),
+           "sun_any_hit": sunspace.resident_warps(),
            "proxy_blocked": slib.dxrpt_screen_resident_warps(
                1, proxy.PROXY_K),
            "cut_clear": slib.dxrpt_screen_resident_warps(0, proxy.CUT_C)}
@@ -2878,6 +2894,204 @@ def screen_row(name, sess, screen, obj, rays, closest):
     return row
 
 
+def grid_warps():
+    """The grid kernel's persistent warps on the card: its resident warps
+    per SM times the SMs."""
+    from dxrpathtracer_tpu_torch.accel import sunspace
+    return (sunspace.resident_warps()
+            * torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def walk_shape(stats, act, warps):
+    """The grid walk's shape from its plain version's stats: record steps
+    per active lane against the longest lane of its 32-ray warp (a warp of
+    one thread per ray walks as long as that lane), the share of issued
+    lane-steps that walk (over all lanes and over the active ones), the
+    lanes a warp step has per distinct record it reads, and how evenly the
+    kernel's `warps` persistent warps share the steps: each warp's range
+    of whole 32-ray fetches cut as csrc/sungrid.cu cuts them, the busiest
+    range's record steps against the mean range's, and the same were the
+    fetches dealt out in turn (fetch f to warp f mod `warps`)."""
+    pad = torch.nn.functional.pad
+    steps = stats["lane_steps"]
+    lanes = pad(steps, (0, -steps.numel() % 32)).view(-1, 32)
+    on = pad(act.to(torch.int64), (0, -act.numel() % 32)).view(-1, 32)
+    longest = lanes.max(dim=1).values
+    total, active = int(steps.sum()), int(act.sum())
+    held = int((on.sum(dim=1) * longest).sum())
+    walked = steps[act].double()
+    per_fetch = lanes.sum(dim=1)
+    fetches = per_fetch.numel()
+    per_warp = -(-fetches // warps)
+    ranges = pad(per_fetch, (0, -fetches % per_warp)).view(-1, per_warp)
+    dealers = min(warps, fetches)
+    dealt = pad(per_fetch, (0, -fetches % dealers)).view(-1, dealers)
+
+    def max_over_mean(x):
+        return float(x.max()) / max(float(x.double().mean()), 1e-30)
+
+    return {"steps_per_active_lane": total / max(active, 1),
+            "warp_longest_per_active_lane": held / max(active, 1),
+            "step_efficiency_all_lanes": total / max(32 * int(longest.sum()),
+                                                     1),
+            "step_efficiency_active_lanes": total / max(held, 1),
+            "lane_steps_p99": float(walked.kthvalue(max(1, int(
+                0.99 * walked.numel()))).values) if walked.numel() else 0.0,
+            "lane_steps_max": int(steps.max()) if steps.numel() else 0,
+            "lanes_per_distinct_record":
+                stats["visits"] / max(stats["warp_records"], 1),
+            "persistent_warps": warps, "range_rays": per_warp * 32,
+            "range_steps_max_over_mean": max_over_mean(ranges.sum(dim=1)),
+            "dealt_steps_max_over_mean": max_over_mean(dealt.sum(dim=0))}
+
+
+def grid_work(stats, act):
+    """(bytes, operations) of a grid call by the BOUND rule, from its plain
+    version's stats."""
+    nbytes = (act.numel() * GRID_RAY_BYTES
+              + int(stats["touched"].sum()) * ROW_BYTES)
+    ops = (int(act.sum()) * GRID_RAY_OPS + stats["visits"] * GRID_STEP_OPS
+           + stats["tri_tests"] * PROXY_OPS)
+    return nbytes, ops
+
+
+def grid_row(name, grid, bvh_ray, rays, **info):
+    """The grid kernel against its plain version on `rays`, 0 lanes that
+    differ, and against the per-ray walk of `bvh_ray` (the grid may see an
+    occluder that the walk's slab test culls, never miss one the walk
+    finds), with its times, its bound and its walk's shape."""
+    from dxrpathtracer_tpu_torch.accel import sunspace, traverse
+    o, d, tmin, tmax, act = rays
+    n = o.shape[0]
+    stats = {}
+    ref = sunspace.sun_any_hit_plain(grid, *rays, stats=stats)
+    kern = lambda: sunspace._launch_kernel(grid, *rays)  # noqa: E731
+    got = kern()
+    walk = traverse.any_hit(bvh_ray, *rays)
+    extra = {"rays": n, "active": int(act.sum()), "records": grid.num_rows,
+             **info, "mismatches_vs_plain": int((got != ref).sum()),
+             "max_abs_err": float((got - ref).abs().max()),
+             "vis_differ_vs_per_ray": int((got != walk).sum()),
+             "vis_above_per_ray": int((got > walk).sum()),
+             "record_visits": stats["visits"],
+             "records_tested": stats["tested"],
+             "triangle_tests": stats["tri_tests"],
+             "rows_touched": int(stats["touched"].sum()),
+             **walk_shape(stats, act, grid_warps())}
+    row = engine_row(f"{name} grid", kern,
+                     lambda: sunspace.sun_any_hit_plain(grid, *rays),
+                     *grid_work(stats, act), extra)
+    if extra["mismatches_vs_plain"] or extra["vis_above_per_ray"]:
+        raise SystemExit(f"chip_smoke: E1 {name}: {extra}")
+    return row
+
+
+def bake_sun_classes(baker):
+    """The grid's two classes of one slab of a bake step, recorded as
+    trace_paths makes its sun calls (depth 1, then 2): {"bake_d1_sun",
+    "bake_d2_sun": (o, d, t_min, t_max, active)} of the slab whose depth-1
+    class has the most active rays, and its first row. Every slab of the
+    step is traced as `Baker.bake_step` traces it; the bake's state is left
+    as it was."""
+    from dxrpathtracer_tpu_torch.bake.baker import bake_sample
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    sess = baker.session
+    frame = sess.frame_constants(sess.sample_idx)
+    pos, nrm = baker.surface_maps["position"], baker.surface_maps["normal"]
+    rows, grid = baker._slab_rows, sess.update_sun_grid()
+    saved, slabs = it.sun_any_hit, {}
+
+    def record(g, *rays):
+        n = rays[0].shape[0]
+        slabs[r0].append(tuple(
+            x.expand(n).contiguous() if x.dim() == 0 else x.contiguous()
+            for x in (torch.as_tensor(y) for y in rays)))
+        return saved(g, *rays)
+
+    try:
+        it.sun_any_hit = record
+        for r0 in baker._row0:
+            slabs[r0] = []
+            bake_sample(sess.scene, sess.bvh_ray, sess.sky_cube,
+                        sess.settings, frame, pos[r0:r0 + rows],
+                        nrm[r0:r0 + rows], baker.accum[r0:r0 + rows],
+                        baker.sample_index, row_offset=r0,
+                        total_texels=baker.resolution ** 2, sun_grid=grid,
+                        proxy=sess.proxy)
+        sync()
+    finally:
+        it.sun_any_hit = saved
+    if any(len(c) != 2 for c in slabs.values()):
+        raise SystemExit(f"chip_smoke: E1 bake: sun calls per slab "
+                         f"{[len(c) for c in slabs.values()]}, want 2")
+    r0 = max(slabs, key=lambda k: int(slabs[k][0][4].sum()))
+    return {"bake_d1_sun": slabs[r0][0], "bake_d2_sun": slabs[r0][1]}, r0
+
+
+def phase_engine_bake_classes(baker, smi):
+    """E1, the bake: the grid kernel on the depth-1 and depth-2 sun classes
+    of one slab of a 4096^2 step (`bake_sun_classes`), as on the frame's."""
+    t0 = time.time()
+    classes, r0 = bake_sun_classes(baker)
+    log(f"E1 bake: the grid's classes of the slab at row {r0} ("
+        f"{baker._slab_rows} rows) recorded in {time.time() - t0:.2f} s; "
+        "active lanes " + ", ".join(f"{k} {int(v[4].sum())}"
+                                    for k, v in classes.items())
+        + f" [{smi}]")
+    sess = baker.session
+    rows = {name: grid_row(name, sess.update_sun_grid(), sess.bvh_ray, rays,
+                           slab_row=r0)
+            for name, rays in classes.items()}
+    return {"classes": rows, "card": smi}
+
+
+def grid_edge_rows(sess):
+    """E1's grid edge cases: tools/traverse_cases.grid_edge_cases on the
+    grids of its GRID_SCENES (three seeded soups, one with a 96-cell grid
+    and one with a steep sun, and BoxTest) and on the stand-in's own grid,
+    each set in a launch of its own and all of a grid's sets in one more,
+    the kernel against its plain version, 0 lanes that differ, and never
+    less occluded than the per-ray walk."""
+    import numpy as np
+
+    from dxrpathtracer_tpu_torch.accel import bvh as bvh_mod
+    from dxrpathtracer_tpu_torch.accel import sunspace, traverse
+    from dxrpathtracer_tpu_torch.tools import traverse_cases as tc
+    grids = {}
+    for name in tc.GRID_SCENES:
+        v0, v1, v2, sun, size = tc.grid_scene(name)
+        grids[name] = (sunspace.build_sun_grid(v0, v1, v2, sun,
+                                               grid_size=size),
+                       bvh_mod.build_bvh(v0, v1, v2, width=8).to(
+                           sess.device), sun)
+    # the stand-in's rays along its grid's basis row 2
+    grids["stand-in"] = (sess.update_sun_grid().to("cpu"), sess.bvh_ray, None)
+    rows = {}
+    for name, (grid, walk_bvh, sun) in grids.items():
+        sets = tc.grid_edge_cases(grid.table.numpy(), grid.index.numpy(),
+                                  grid.params.numpy(), grid.basis.numpy(),
+                                  grid.grid_size, sun=sun)
+        sets["all"] = tc.concat_rays(sets)[0]
+        grid = grid.to(sess.device)
+        for key, r in sets.items():
+            rays = tuple(torch.from_numpy(np.ascontiguousarray(r[f])).to(
+                sess.device) for f in tc.RAY_FIELDS)
+            stats = {}
+            ref = sunspace.sun_any_hit_plain(grid, *rays, stats=stats)
+            got = sunspace._launch_kernel(grid, *rays)
+            walk = traverse.any_hit(walk_bvh, *rays)
+            rows[f"grid {name} {key}"] = {
+                "rays": rays[0].shape[0], "active": int(rays[4].sum()),
+                "blocked": int((got == 0).sum()),
+                "lane_steps_max": int(stats["lane_steps"].max()),
+                "mismatches_vs_plain": int((got != ref).sum()),
+                "vis_above_per_ray": int((got > walk).sum())}
+    for key, row in rows.items():
+        log(f"E1 edge {key}: " + ", ".join(f"{k}={v}"
+                                           for k, v in row.items()))
+    return rows
+
+
 def engine_edge_cases(sess, box_sess):
     """E1's edge cases, each kernel against its plain version on the card,
     0 lanes that differ in any bit: the packet walk, closest and any hit,
@@ -2886,7 +3100,8 @@ def engine_edge_cases(sess, box_sess):
     table (a packet with no active ray, packets with one, a packet whose
     rays all hit in the first leaf it reaches, a packet that reaches the
     deepest stack the table needs); the proxy screen on proxy_edge_rays at
-    K = 8 and K = 1,365 (the soup) and K = 24 (BoxTest's proxy)."""
+    K = 8 and K = 1,365 (the soup) and K = 24 (BoxTest's proxy); the grid
+    walk on `grid_edge_rows`."""
     import numpy as np
 
     from dxrpathtracer_tpu_torch.accel import bvh as bvh_mod
@@ -2965,6 +3180,10 @@ def engine_edge_cases(sess, box_sess):
                                            for k, v in row.items()))
         if row["mismatches_vs_plain"] or row["k"] != {
                 "k8": 8, "k1365": proxy.MAX_COLUMNS, "box_k24": 24}[name]:
+            bad.append(key)
+    for key, row in grid_edge_rows(sess).items():
+        rows[key] = row
+        if row["mismatches_vs_plain"] or row["vis_above_per_ray"]:
             bad.append(key)
     if bad:
         raise SystemExit(f"chip_smoke: E1 edge cases {bad}: "
@@ -3067,34 +3286,9 @@ def phase_engine_classes(sess, box_sess, smi):
             raise SystemExit(f"chip_smoke: E1 {name}: {extra}")
 
     # the grid on the depth-2 sun class
-    o, d, tmin, tmax, act = classes["d2_sun"]
-    grid = sess.update_sun_grid()
-    stats = {}
-    ref = sunspace.sun_any_hit_plain(grid, o, d, tmin, tmax, act, stats)
-    kern = lambda: sunspace._launch_kernel(grid, o, d, tmin, tmax, act)  # noqa: E731
-    got = kern()
-    walk = traverse.any_hit(sess.bvh_ray, o, d, tmin, tmax, act)
-    extra = {"rays": n, "active": int(act.sum()), "records": grid.num_rows,
-             "grid_build_s": sess.sun_grid_build_s,
-             "mismatches_vs_plain": int((got != ref).sum()),
-             "max_abs_err": float((got - ref).abs().max()),
-             "vis_differ_vs_per_ray": int((got != walk).sum()),
-             "vis_above_per_ray": int((got > walk).sum()),
-             "record_visits": stats["visits"],
-             "records_tested": stats["tested"],
-             "triangle_tests": stats["tri_tests"],
-             "rows_touched": int(stats["touched"].sum())}
-    nbytes = n * GRID_RAY_BYTES + extra["rows_touched"] * ROW_BYTES
-    ops = (int(act.sum()) * GRID_RAY_OPS + stats["visits"] * GRID_STEP_OPS
-           + stats["tri_tests"] * PROXY_OPS)
-    rows["d2_sun"] = engine_row(
-        "d2_sun grid", kern,
-        lambda: sunspace.sun_any_hit_plain(grid, o, d, tmin, tmax, act),
-        nbytes, ops, extra)
-    # as with packets, the grid may see an occluder that the walk's slab
-    # test culls, never miss one the walk finds
-    if extra["mismatches_vs_plain"] or extra["vis_above_per_ray"]:
-        raise SystemExit(f"chip_smoke: E1 d2_sun: {extra}")
+    rows["d2_sun"] = grid_row("d2_sun", sess.update_sun_grid(), sess.bvh_ray,
+                              classes["d2_sun"],
+                              grid_build_s=sess.sun_grid_build_s)
 
     # the screens: the proxy on the terminal and depth-2 sun classes, the
     # cut (built un-gated: the probe keeps it off on the stand-in) on the
@@ -3358,6 +3552,7 @@ def main():
     render = phase_render_command(smi)
     torch.cuda.empty_cache()
     baker, bake, bake_launches = phase_bake(smi)
+    engine_bake = phase_engine_bake_classes(baker, smi)
     bake_ab, bake_ab_launches = phase_engine_bake_ab(baker, smi)
     gathers = phase_gather(frame_sess, d1_hits, baker)
     same_bake = phase_same_bake()
@@ -3459,7 +3654,8 @@ def main():
                    "animate_ray_classes": anim_classes,
                    "animate_traversal_total": anim_trav,
                    "interactive": viewer, "engine_classes": engines,
-                   "engine_ab": engine_ab, "engine_bake_ab": bake_ab,
+                   "engine_bake_classes": engine_bake, "engine_ab": engine_ab,
+                   "engine_bake_ab": bake_ab,
                    "engine_same_frame": engine_same, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))

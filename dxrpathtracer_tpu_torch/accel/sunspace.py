@@ -14,8 +14,9 @@ the first blocking triangle, at the chain's end, or where no later triangle
 can lie above it. The grid is a conservative index, and the triangle test
 is the walk's own, so visibility equals traverse.any_hit on every lane.
 
-`sun_any_hit` launches csrc/sungrid.cu (one thread per ray) for CUDA
-tensors and runs `sun_any_hit_plain` (the JAX package's step, over the lanes
+`sun_any_hit` launches csrc/sungrid.cu (persistent warps, each walking its
+own range of rays, a lane taking the range's next active ray when its ray
+ends) for CUDA tensors and runs `sun_any_hit_plain` (the JAX package's step, over the lanes
 still walking) for CPU tensors; it routes on the device alone. It is opaque
 only: alpha-tested sun rays stay on the per-ray walk. The JAX module's TPU
 machinery (lane quarantine, compaction phases, UNROLL) has no counterpart.
@@ -243,8 +244,20 @@ def kernel_library():
         lib.dxrpt_sun_any_hit.restype = ctypes.c_int
         lib.dxrpt_sun_any_hit.argtypes = [p, p, p, p, i32, i32,
                                           p, p, p, p, p, i64, p, p]
+        lib.dxrpt_sungrid_resident_warps.restype = ctypes.c_int
+        lib.dxrpt_sungrid_resident_warps.argtypes = []
         _kernel = lib
     return _kernel
+
+
+def resident_warps() -> int:
+    """Warps of the grid kernel that one SM of the current CUDA device holds
+    at once (its persistent launch is this times the SM count)."""
+    warps = kernel_library().dxrpt_sungrid_resident_warps()
+    if warps <= 0:
+        raise RuntimeError(f"sun grid kernel occupancy query failed: CUDA "
+                           f"error {-warps}")
+    return warps
 
 
 def _launch_kernel(grid: SunGrid, ray_o, ray_d, t_min, t_max, active):
@@ -308,8 +321,10 @@ def sun_any_hit_plain(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
     tests the record where its own zmax is not, and moves on; a blocked lane
     stops. Returns (N,) f32 visibility. With `stats`, adds the record visits
     ("visits"), the records tested ("tested"), the filled triangles tested
-    up to the first blocking one ("tri_tests") and the rows touched
-    ("touched", a (rows,) bool mask) to it."""
+    up to the first blocking one ("tri_tests"), the rows touched
+    ("touched", a (rows,) bool mask), each lane's record visits
+    ("lane_steps", (N,) int64) and the distinct (32-lane warp, step, record)
+    triples of the visits ("warp_records") to it."""
     n, dev = ray_o.shape[0], ray_o.device
     S = grid.grid_size
     b, p = grid.basis, grid.params
@@ -331,7 +346,9 @@ def sun_any_hit_plain(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
     if stats is not None:
         stats.setdefault("touched", torch.zeros(grid.num_rows,
                                                 dtype=torch.bool, device=dev))
-        for k in ("visits", "tested", "tri_tests"):
+        stats.setdefault("lane_steps", torch.zeros(n, dtype=torch.int64,
+                                                   device=dev))
+        for k in ("visits", "tested", "tri_tests", "warp_records"):
             stats.setdefault(k, 0)
     it = 0
     while lanes.numel() and it < grid.num_rows + 8:
@@ -355,6 +372,9 @@ def sun_any_hit_plain(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
             stats["tested"] += int(sel.numel())
             stats["tri_tests"] += int((filled & upto).sum())
             stats["touched"][row] = True
+            stats["lane_steps"][lanes] += 1
+            stats["warp_records"] += int(torch.unique(
+                lanes // 32 * grid.num_rows + row).numel())
         blocked[lanes[hit]] = True
         nxt = rec[:, _NEXT_SLOT].view(torch.int32)
         keep = walk_on & ~hit & (nxt != DONE)

@@ -17,15 +17,41 @@
 // and then one dependent 512 B record per chain step, and writes 4 B. The
 // records of a frame (about 50 MB for a quarter-million triangles) sit
 // mostly in the 50 MB L2, and a step tests 12 triangles at 54 f32 operations
-// each, so the work is the records' latency and their triangle tests.
+// each, so the work is the records' latency and their triangle tests. About
+// half of a frame's sun rays are inactive, and chains run from 1 to 20
+// records: with one thread per ray, half of every warp idles and a warp
+// walks as long as its longest chain.
 //
-// What the design does about it. One thread per ray, the grid one thread
-// per ray: neighbouring pixels' shadow rays project to neighbouring cells
-// and often walk the same chain, so a warp's record loads coalesce in L1 and
-// L2. The chain's tail words are read first and decide whether the 480 B of
-// triangles is read at all; the triangles come in as 16 B vectors. A ray
-// stops at the first blocking triangle (any hit), as the reference's
-// ACCEPT_FIRST_HIT_AND_END_SEARCH shadow rays do.
+// What the design does about it. Persistent warps, each on its own (no
+// block barrier, no shared memory), as many as the SMs hold at once. Each
+// warp owns one contiguous range of ray ids and keeps a warp-local cursor
+// into it.
+//  - Fetch: the warp reads the next 32 `active` flags of its range (one
+//    coalesced 32 B read) and one ballot gives the active ones. An inactive
+//    ray gets its 1 right there and never takes lanes.
+//  - Walk: a group of kGroup lanes walks one ray, 32 / kGroup rays a warp
+//    at a time. Per step the group reads the record's tail (one 16 B read,
+//    broadcast) and, in the same round trip, lane j of the group reads the
+//    ten fields of triangles j, j + kGroup, ... (slot k of field f is word
+//    12 f + k, so a group's lanes read consecutive words), tests them, and
+//    one warp-wide ballot, masked to each group's lanes, gives every group
+//    its record's verdict. With kGroup = 1 a lane reads each field as 16 B
+//    vectors, four triangles at a time, and stops at the first four that
+//    hold a blocker.
+//  - Refill: a group whose ray ends (a blocker, the chain's end, the suffix
+//    cut or max_iters) writes the ray's visibility and takes the warp's next
+//    active ray, so a warp is held only by the last rays of its range, not
+//    by its longest chain.
+// A ray stops at the first record that holds a blocker, whatever order that
+// record's 12 tests run in, so the visibility is an OR over the same
+// triangles as the one-lane walk's.
+// Measured on the H100 (PERF.md): one lane a ray (kGroup = 1) took 15-19 %
+// less time than four (kGroup = 4) on the frame's and the bake's sun
+// classes. Against one thread per ray in blocks, which the block scheduler
+// hands out as SMs free up, the fixed ranges win where the record steps
+// spread evenly over them (the bake's depth-2 class: the busiest range
+// holds 2.0x the mean range's steps) and lose where they crowd into a few
+// (the bake's depth-1 class: 3.1x).
 //
 // Exactness. Build with --fmad=false and without fast-math. The projection
 // sums left to right, thr = (origin . w) + t_min, the cell is floor, then
@@ -36,17 +62,38 @@
 // Plain C interface for ctypes: the launcher returns the CUDA error code of
 // the launch (0 on success) and never synchronises.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 128;
-constexpr int kRecord = 128;       // f32 slots per record
-constexpr int kLeafSize = 12;      // triangles per record
-constexpr int kNextSlot = 10 * kLeafSize;
+constexpr int kGroup = 1;            // lanes that walk one ray together
+constexpr int kWarps = 4;            // warps per block, each on its own
+constexpr int kBlock = kWarps * 32;
+constexpr int kRecord = 128;         // f32 slots per record
+constexpr int kLeafSize = 12;        // triangles per record
+constexpr int kFields = 10;          // v0, e1, e2 (x, y, z each), triangle id
+constexpr int kTail = kFields * kLeafSize;  // next code, suffix-, own-zmax
+constexpr int kSlots = kLeafSize / kGroup;  // triangles per lane per record
+// slots a lane reads at once: a lane alone on its ray reads each field in
+// 16 B vectors of four slots, a lane of a group all of its slots
+constexpr int kBatch = kGroup == 1 ? 4 : kSlots;
 constexpr int32_t kDone = 0x7FFFFFFF;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr unsigned kGroupBits = (1u << kGroup) - 1u;
 constexpr float kEps = 1e-12f;
+static_assert(32 % kGroup == 0 && kLeafSize % kGroup == 0
+                  && kSlots % kBatch == 0,
+              "a group divides the warp and the record");
+
+// the first lane of every group
+constexpr unsigned leader_lanes() {
+    unsigned m = 0;
+    for (int l = 0; l < 32; l += kGroup) m |= 1u << l;
+    return m;
+}
+constexpr unsigned kLeaders = leader_lanes();
 
 __device__ __forceinline__ float nan_min(float a, float b) {
     float r;
@@ -60,10 +107,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
     return r;
 }
 
-__device__ __forceinline__ float component(const float4& v, int c) {
-    return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
-}
-
 // The sun-plane cell coordinate of a projected point: floor((p - g0) * inv),
 // clipped to [0, S - 1], then converted to int32 (NaN converts to 0).
 __device__ __forceinline__ int32_t cell(float p, float g0, float inv, int s) {
@@ -72,53 +115,74 @@ __device__ __forceinline__ int32_t cell(float p, float g0, float inv, int s) {
                                   static_cast<float>(s - 1)));
 }
 
-// Whether one of the record's 12 triangles blocks the ray within
-// [tmin, tmax): Moller-Trumbore as csrc/traverse.cu's `triangle`.
-__device__ __forceinline__ bool record_blocks(
-        const float4* __restrict__ rec, float ox, float oy, float oz,
-        float dx, float dy, float dz, float tmin, float tmax) {
-#pragma unroll 1
-    for (int q = 0; q < 3; ++q) {
-        float4 fld[10];
-#pragma unroll
-        for (int f = 0; f < 10; ++f) fld[f] = __ldg(rec + f * 3 + q);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const float v0x = component(fld[0], c);
-            const float v0y = component(fld[1], c);
-            const float v0z = component(fld[2], c);
-            const float e1x = component(fld[3], c);
-            const float e1y = component(fld[4], c);
-            const float e1z = component(fld[5], c);
-            const float e2x = component(fld[6], c);
-            const float e2y = component(fld[7], c);
-            const float e2z = component(fld[8], c);
-            const int32_t id = __float_as_int(component(fld[9], c));
-            const float px = dy * e2z - dz * e2y;
-            const float py = dz * e2x - dx * e2z;
-            const float pz = dx * e2y - dy * e2x;
-            const float det = e1x * px + e1y * py + e1z * pz;
-            const bool det_ok = fabsf(det) > kEps;
-            const float inv_det =
-                det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
-            const float sx = ox - v0x;
-            const float sy = oy - v0y;
-            const float sz = oz - v0z;
-            const float u = (sx * px + sy * py + sz * pz) * inv_det;
-            const float qx = sy * e1z - sz * e1y;
-            const float qy = sz * e1x - sx * e1z;
-            const float qz = sx * e1y - sy * e1x;
-            const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-            const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-            if (id >= 0 && det_ok && u >= 0.0f && v >= 0.0f
-                && u + v <= 1.0f && t >= tmin && t < tmax)
-                return true;
-        }
-    }
-    return false;
+struct Ray {
+    float ox, oy, oz, dx, dy, dz, tmin, tmax;
+};
+
+// Whether the triangle (v0, e1, e2, id) blocks the ray within [tmin, tmax):
+// Moller-Trumbore as csrc/traverse.cu's `triangle`.
+__device__ __forceinline__ bool triangle_blocks(
+        float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+        float e2x, float e2y, float e2z, int32_t id, const Ray& r) {
+    const float px = r.dy * e2z - r.dz * e2y;
+    const float py = r.dz * e2x - r.dx * e2z;
+    const float pz = r.dx * e2y - r.dy * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const bool det_ok = fabsf(det) > kEps;
+    const float inv_det = det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
+    const float sx = r.ox - v0x;
+    const float sy = r.oy - v0y;
+    const float sz = r.oz - v0z;
+    const float u = (sx * px + sy * py + sz * pz) * inv_det;
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+    return id >= 0 && det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
+           && t >= r.tmin && t < r.tmax;
 }
 
-// params: gx0, gy0, inv_fx, inv_fy; basis: rows ax, ay, w.
+// Slots first + kGroup * s (s < kN) of the record's ten fields.
+template <int kN>
+__device__ __forceinline__ void load_slots(const float* __restrict__ rec,
+                                           int first,
+                                           float (&fld)[kFields][kN]) {
+    if constexpr (kGroup == 1) {
+        static_assert(kN == 4, "one 16 B vector per field");
+#pragma unroll
+        for (int f = 0; f < kFields; ++f) {
+            const float4 v = __ldg(
+                reinterpret_cast<const float4*>(rec + f * kLeafSize + first));
+            fld[f][0] = v.x;
+            fld[f][1] = v.y;
+            fld[f][2] = v.z;
+            fld[f][3] = v.w;
+        }
+    } else {
+#pragma unroll
+        for (int f = 0; f < kFields; ++f)
+#pragma unroll
+            for (int s = 0; s < kN; ++s)
+                fld[f][s] = __ldg(rec + f * kLeafSize + first + kGroup * s);
+    }
+}
+
+// Whether one of the loaded slots blocks the ray (every slot is tested).
+template <int kN>
+__device__ __forceinline__ bool slots_block(const float (&fld)[kFields][kN],
+                                            const Ray& r) {
+    bool hit = false;
+#pragma unroll
+    for (int s = 0; s < kN; ++s)
+        hit |= triangle_blocks(fld[0][s], fld[1][s], fld[2][s], fld[3][s],
+                               fld[4][s], fld[5][s], fld[6][s], fld[7][s],
+                               fld[8][s], __float_as_int(fld[9][s]), r);
+    return hit;
+}
+
+// params: gx0, gy0, inv_fx, inv_fy; basis: rows ax, ay, w. Warp w owns rays
+// [w * span, (w + 1) * span) of n; span is a multiple of 32.
 __global__ void __launch_bounds__(kBlock)
 sungrid_kernel(const float* __restrict__ table,
                const int32_t* __restrict__ index,
@@ -128,49 +192,155 @@ sungrid_kernel(const float* __restrict__ table,
                const float* __restrict__ ray_d,
                const float* __restrict__ t_min,
                const float* __restrict__ t_max,
-               const uint8_t* __restrict__ active, int64_t n,
+               const uint8_t* __restrict__ active, int64_t n, int64_t span,
                float* __restrict__ out) {
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-    if (i >= n) return;
-    if (!active[i]) {
-        out[i] = 1.0f;
-        return;
-    }
-    const float ox = ray_o[3 * i], oy = ray_o[3 * i + 1], oz = ray_o[3 * i + 2];
-    const float dx = ray_d[3 * i], dy = ray_d[3 * i + 1], dz = ray_d[3 * i + 2];
-    const float tmin = t_min[i], tmax = t_max[i];
-    float b[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) b[k] = __ldg(basis + k);
-    const float px = ox * b[0] + oy * b[1] + oz * b[2];
-    const float py = ox * b[3] + oy * b[4] + oz * b[5];
-    // an occluder needs a sun depth above the origin's depth + t_min
-    const float thr = (ox * b[6] + oy * b[7] + oz * b[8]) + tmin;
-    const int s = grid_size;
-    const int32_t cx = cell(px, __ldg(params), __ldg(params + 2), s);
-    const int32_t cy = cell(py, __ldg(params + 1), __ldg(params + 3), s);
-    int64_t flat = static_cast<int64_t>(cy) * s + cx;
-    flat = flat < 0 ? 0 : (flat >= static_cast<int64_t>(s) * s
-                           ? static_cast<int64_t>(s) * s - 1 : flat);
-    int32_t cur = __ldg(index + flat);
-    float vis = 1.0f;
-    for (int32_t it = 0; it < max_iters && cur != kDone; ++it) {
-        const float* __restrict__ rec =
-            table + static_cast<int64_t>(~cur) * kRecord;
-        const int32_t next = __float_as_int(__ldg(rec + kNextSlot));
-        const float suffix_zmax = __ldg(rec + kNextSlot + 1);
-        const float own_zmax = __ldg(rec + kNextSlot + 2);
-        if (suffix_zmax < thr) break;  // nothing further can block
-        if (own_zmax >= thr
-            && record_blocks(reinterpret_cast<const float4*>(rec), ox, oy,
-                             oz, dx, dy, dz, tmin, tmax)) {
-            vis = 0.0f;
-            break;
+    const int lane = threadIdx.x & 31;
+    const int64_t warp =
+        static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+    const int64_t begin = warp * span;
+    if (begin >= n) return;  // the whole warp
+    const int64_t end = begin + span < n ? begin + span : n;
+    const int lead = lane & ~(kGroup - 1);  // the group's first lane
+    const int j = lane - lead;              // the lane's place in its group
+    const unsigned leaders_below = kLeaders & ((1u << lead) - 1u);
+
+    // the warp's cursor (warp-uniform): the next ray id to fetch, and the
+    // active rays of the last fetch that no group has taken yet
+    int64_t fetch = begin;
+    int64_t fetched = begin;  // ray id of bit 0 of `pending`
+    unsigned pending = 0;
+
+    // the group's ray (the same in each of its lanes)
+    bool busy = false;
+    int64_t ray = 0;
+    Ray r{};
+    float thr = 0.0f;
+    int32_t cur = kDone;
+    int32_t it = 0;
+
+    for (;;) {
+        // refill: every idle group takes the warp's next active ray
+        for (;;) {
+            const unsigned idle = ~__ballot_sync(kFull, busy) & kLeaders;
+            if (idle == 0) break;
+            if (pending == 0) {
+                if (fetch >= end) break;
+                const int64_t i = fetch + lane;
+                const bool in = i < end;
+                const bool on = in && active[i] != 0;
+                if (in && !on) out[i] = 1.0f;
+                pending = __ballot_sync(kFull, on);
+                fetched = fetch;
+                fetch += 32;
+                continue;
+            }
+            const int takes = min(__popc(idle), __popc(pending));
+            const int rank = __popc(idle & leaders_below);
+            if (!busy && rank < takes) {
+                unsigned m = pending;
+                for (int k = 0; k < rank; ++k) m &= m - 1u;
+                ray = fetched + (__ffs(m) - 1);
+                r.ox = __ldg(ray_o + 3 * ray);
+                r.oy = __ldg(ray_o + 3 * ray + 1);
+                r.oz = __ldg(ray_o + 3 * ray + 2);
+                r.dx = __ldg(ray_d + 3 * ray);
+                r.dy = __ldg(ray_d + 3 * ray + 1);
+                r.dz = __ldg(ray_d + 3 * ray + 2);
+                r.tmin = __ldg(t_min + ray);
+                r.tmax = __ldg(t_max + ray);
+                const float px = r.ox * __ldg(basis) + r.oy * __ldg(basis + 1)
+                                 + r.oz * __ldg(basis + 2);
+                const float py = r.ox * __ldg(basis + 3)
+                                 + r.oy * __ldg(basis + 4)
+                                 + r.oz * __ldg(basis + 5);
+                // an occluder needs a sun depth above the origin's + t_min
+                thr = (r.ox * __ldg(basis + 6) + r.oy * __ldg(basis + 7)
+                       + r.oz * __ldg(basis + 8)) + r.tmin;
+                const int s = grid_size;
+                const int32_t cx =
+                    cell(px, __ldg(params), __ldg(params + 2), s);
+                const int32_t cy =
+                    cell(py, __ldg(params + 1), __ldg(params + 3), s);
+                int64_t flat = static_cast<int64_t>(cy) * s + cx;
+                flat = flat < 0 ? 0
+                                : (flat >= static_cast<int64_t>(s) * s
+                                       ? static_cast<int64_t>(s) * s - 1
+                                       : flat);
+                cur = __ldg(index + flat);
+                it = 0;
+                busy = cur != kDone;
+                if (!busy && j == 0) out[ray] = 1.0f;  // an empty cell
+            }
+            for (int k = 0; k < takes; ++k) pending &= pending - 1u;
         }
-        cur = next;
+        if (__ballot_sync(kFull, busy) == 0) break;  // the range is done
+
+        // one record step of every busy group
+        bool hit = false, walk_on = false;
+        int32_t next = kDone;
+        if (busy) {
+            const float* __restrict__ rec =
+                table + static_cast<int64_t>(~cur) * kRecord;
+            const float4 tail =
+                __ldg(reinterpret_cast<const float4*>(rec + kTail));
+            float fld[kFields][kBatch];
+            load_slots<kBatch>(rec, j, fld);
+            next = __float_as_int(tail.x);
+            walk_on = !(tail.y < thr);  // suffix-zmax: nothing further
+            if (walk_on && tail.z >= thr) {  // own-zmax: test the record
+                hit = slots_block<kBatch>(fld, r);
+#pragma unroll 1
+                for (int b = 1; b < kSlots / kBatch && !hit; ++b) {
+                    load_slots<kBatch>(rec, j + kGroup * kBatch * b, fld);
+                    hit = slots_block<kBatch>(fld, r);
+                }
+            }
+        }
+        const unsigned hits = __ballot_sync(kFull, hit);
+        if (busy) {
+            const bool blocked = ((hits >> lead) & kGroupBits) != 0u;
+            ++it;
+            if (blocked || !walk_on || next == kDone || it >= max_iters) {
+                if (j == 0) out[ray] = blocked ? 0.0f : 1.0f;
+                busy = false;
+            } else {
+                cur = next;
+            }
+        }
     }
-    out[i] = vis;
+}
+
+// Warps of the kernel that one SM of the current device holds at once.
+cudaError_t resident_per_sm(int* warps) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, sungrid_kernel, kBlock, 0);
+    *warps = blocks * kWarps;
+    return err;
+}
+
+// The persistent warps of the current device (its resident warps per SM
+// times its SMs), worked out at the first launch on each device and kept.
+cudaError_t resident_grid(int64_t* warps) {
+    constexpr int kMaxDevices = 64;
+    static std::atomic<int64_t> cache[kMaxDevices];  // 0: not yet known
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    int64_t w = cache[device].load(std::memory_order_relaxed);
+    if (w == 0) {
+        int sms = 0, per_sm = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+        if (err == cudaSuccess) err = resident_per_sm(&per_sm);
+        if (err != cudaSuccess) return err;
+        if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+        w = static_cast<int64_t>(per_sm) * sms;
+        cache[device].store(w, std::memory_order_relaxed);
+    }
+    *warps = w;
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -188,10 +358,27 @@ extern "C" int dxrpt_sun_any_hit(const float* table, const int32_t* index,
     if (n <= 0) return 0;
     if (grid_size < 1 || max_iters < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t blocks = (n + kBlock - 1) / kBlock;
+    int64_t resident = 0;
+    const cudaError_t err = resident_grid(&resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // each warp takes an equal run of whole 32-ray fetches, and no more
+    // warps are launched than the rays fill
+    const int64_t fetches = (n + 31) / 32;
+    const int64_t per_warp = (fetches + resident - 1) / resident;
+    const int64_t warps = (fetches + per_warp - 1) / per_warp;
+    const int64_t blocks = (warps + kWarps - 1) / kWarps;
     sungrid_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
                      static_cast<cudaStream_t>(stream)>>>(
         table, index, params, basis, grid_size, max_iters, ray_o, ray_d,
-        t_min, t_max, active, n, out);
+        t_min, t_max, active, n, per_warp * 32, out);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Warps of the kernel that one SM of the current device holds at once (the
+// persistent launch is this times the SM count), or minus the CUDA error
+// code.
+extern "C" int dxrpt_sungrid_resident_warps() {
+    int warps = 0;
+    const cudaError_t err = resident_per_sm(&warps);
+    return err != cudaSuccess ? -static_cast<int>(err) : warps;
 }

@@ -1,23 +1,26 @@
-"""The packet and dense-proxy kernels of two trees on the same rays, on the
-card: `python -m dxrpathtracer_tpu_torch.tools.engine_ab --parent DIR
-[--packet-variant NAME=FILE ...]`.
+"""The packet, dense-proxy and sun-grid kernels of two trees on the same
+rays, on the card: `python -m dxrpathtracer_tpu_torch.tools.engine_ab
+--parent DIR [--packet-variant NAME=FILE ...]`.
 
 DIR is a checkout of another commit (`git archive <commit> | tar -C DIR -xf
--`). The script builds DIR's csrc/packet.cu and csrc/screen.cu, this tree's,
-one alternative of this tree's ("alt": the packet kernel with kWarps = 8
-packets per block, the proxy with kPhase1 = 32 triangles in its first
-phase; each a copy of the source with that one constant changed) and any
-other packet.cu given as a variant (run with this tree's screens). It
-records the engine classes of one sample of the 1080p stand-in with the
-default settings (chip_smoke.py's E1 classes), holds every build against
-the plain versions on them, bit for bit, runs chip_smoke.py's E1 edge cases
-on this tree's kernels, and then times the builds in turns: parent, change,
-alt, the variants, then the same in reverse, each turn every class (CUDA
-events, the mean of 20 launches after one), beside the per-ray walk on the
-same rays (W8 for the depth-1 classes, W32 for the proxy's) and each
-class's bound by chip_smoke.py's rule. It prints one line per class and
-build with the card's name and power limit, each build's ptxas report, and
-writes chiprun_out/engine_ab.json. Needs a CUDA device.
+-`). The script builds DIR's csrc/packet.cu, csrc/screen.cu and
+csrc/sungrid.cu, this tree's, one alternative of this tree's ("alt": the
+packet kernel with kWarps = 8 packets per block, the proxy with kPhase1 =
+32 triangles in its first phase, the grid walk with kGroup = 4 lanes per
+ray; each a copy of the source with that one constant changed) and any
+other packet.cu given as a variant (run with this tree's screens and
+grid). It records the engine classes of one sample of the 1080p stand-in
+with the default settings (chip_smoke.py's E1 classes) and the grid's two
+classes of one slab of a 4096^2 bake step (E1's bake classes), holds every
+build against the plain versions on them, bit for bit, runs chip_smoke.py's
+E1 edge cases on this tree's kernels, and then times the builds in turns:
+parent, change, alt, the variants, then the same in reverse, each turn
+every class (CUDA events, the mean of 20 launches after one), beside the
+per-ray walk on the same rays (W8 for the depth-1 classes, W32 for the
+proxy's, both for the grid's) and each class's bound by chip_smoke.py's
+rule. It prints one line per class and build with the card's name and
+power limit, each build's ptxas report, and writes
+chiprun_out/engine_ab.json. Needs a CUDA device.
 """
 
 import argparse
@@ -31,12 +34,17 @@ from pathlib import Path
 
 import torch
 
-from ..accel import packet, proxy, traverse
+from ..accel import packet, proxy, sunspace, traverse
 from ..buildlib import BUILD_DIR, REPO_ROOT, build_shared_library, nvcc
 
 ALT = {"packet": ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
        "screen": ("constexpr int kPhase1 = 16;",
-                  "constexpr int kPhase1 = 32;")}
+                  "constexpr int kPhase1 = 32;"),
+       "sungrid": ("constexpr int kGroup = 1;", "constexpr int kGroup = 4;")}
+# each source's wrapper module and the C functions every build of it has
+KERNELS = {"packet": (packet, ("dxrpt_packet_traverse",)),
+           "screen": (proxy, ("dxrpt_proxy_blocked", "dxrpt_cut_clear")),
+           "sungrid": (sunspace, ("dxrpt_sun_any_hit",))}
 REPEAT = 20
 
 
@@ -45,7 +53,7 @@ def _sources(parent: Path, variants: dict) -> dict:
     ({name: packet.cu path}) builds; the alt sources are written under the
     build directory."""
     out = {(name, "packet"): Path(path) for name, path in variants.items()}
-    for kernel in ("packet", "screen"):
+    for kernel in KERNELS:
         out[("parent", kernel)] = (parent / "dxrpathtracer_tpu_torch" / "csrc"
                                    / f"{kernel}.cu")
         text = (Path(packet.KERNEL_SOURCE).parent / f"{kernel}.cu").read_text()
@@ -68,18 +76,17 @@ def _build(sources: dict) -> dict:
             Path(src), f"{kernel}_{build}", [nvcc(), *traverse.NVCC_FLAGS])
         return (build, kernel), (ctypes.CDLL(str(path)), log)
 
-    with ThreadPoolExecutor(len(sources) + 2) as pool:
-        own = [pool.submit(m.kernel_library) for m in (packet, proxy)]
+    with ThreadPoolExecutor(len(sources) + len(KERNELS)) as pool:
+        own = [pool.submit(m.kernel_library) for m, _ in KERNELS.values()]
         libs = dict(pool.map(one, sources.items()))
         for f in own:
             f.result()
-    libs[("change", "packet")] = (packet.kernel_library(), packet.BUILD_LOG)
-    libs[("change", "screen")] = (proxy.kernel_library(), proxy.BUILD_LOG)
+    for kernel, (mod, _) in KERNELS.items():
+        libs[("change", kernel)] = (mod.kernel_library(), mod.BUILD_LOG)
     # the C interfaces are the same in every build: the wrappers' argtypes
     for (build, kernel), (lib, _) in libs.items():
         ref = libs[("change", kernel)][0]
-        for name in (("dxrpt_packet_traverse",) if kernel == "packet"
-                     else ("dxrpt_proxy_blocked", "dxrpt_cut_clear")):
+        for name in KERNELS[kernel][1]:
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = getattr(ref, name).argtypes
     return libs
@@ -87,9 +94,9 @@ def _build(sources: dict) -> dict:
 
 def _use(libs, build):
     """Points the wrappers at `build`'s libraries (a packet variant's with
-    this tree's screens)."""
-    packet._kernel = libs[(build, "packet")][0]
-    proxy._kernel = libs.get((build, "screen"), libs[("change", "screen")])[0]
+    this tree's screens and grid)."""
+    for kernel, (mod, _) in KERNELS.items():
+        mod._kernel = libs.get((build, kernel), libs[("change", kernel)])[0]
 
 
 def _hits_differ(a, b):
@@ -112,6 +119,10 @@ def main(argv=None):
     sys.path.insert(0, str(REPO_ROOT))
     import chip_smoke as cs
 
+    from ..app.session import RenderSession
+    from ..app.settings import AppSettings, Scenes
+    from ..bake.baker import Baker
+
     smi = cs.phase_device()
     libs = _build(_sources(args.parent.resolve(), variants))
     builds = {}
@@ -121,13 +132,17 @@ def main(argv=None):
             print(f"ptxas {build} {name}: " + ", ".join(
                 f"{k} {v}" for k, v in row.items()), flush=True)
     _use(libs, "change")
-    warps = cs.engine_resident_warps(packet, proxy)
+    warps = cs.engine_resident_warps(packet, sunspace, proxy)
     print(f"resident warps per SM (change): {warps}", flush=True)
 
     sess = cs.engine_session("Sponza")
     box_sess = cs.engine_session("BoxTest")
     classes = cs.engine_classes(sess)
     n = sess.width * sess.height
+    baker = Baker(RenderSession(AppSettings(current_scene=Scenes.Sponza), 8,
+                                8, device=cs.DEVICE),
+                  resolution=cs.BAKE_RES, atlas_mode="pair")
+    bake_classes, slab_row = cs.bake_sun_classes(baker)
 
     # the work, the bound and the plain results of each class
     jobs = {}
@@ -172,6 +187,33 @@ def main(argv=None):
             work={"active": int(act.sum()), "blocked": int(ref.sum()),
                   "triangle_tests": stats["tests"]})
 
+    # the grid on the frame's depth-2 sun class and the bake slab's two
+    for name, (owner, rays) in {
+            "grid_d2_sun": (sess, classes["d2_sun"]),
+            "grid_bake_d1_sun": (baker.session, bake_classes["bake_d1_sun"]),
+            "grid_bake_d2_sun": (baker.session,
+                                 bake_classes["bake_d2_sun"])}.items():
+        grid = owner.update_sun_grid()
+        o, d, tmin, tmax, act = rays
+        inv = traverse.safe_inv(d).contiguous()
+        stats = {}
+        ref = sunspace.sun_any_hit_plain(grid, *rays, stats=stats)
+        walks = {f"W{w}": lambda bvh=bvh, o=o, d=d, inv=inv, tmin=tmin,
+                 tmax=tmax, act=act: traverse._launch_kernel(
+                     bvh, o, d, inv, tmin, tmax, act, True)
+                 for w, bvh in ((32, owner.bvh_ray), (8, owner.bvh))}
+        jobs[name] = dict(
+            run=lambda grid=grid, rays=rays: sunspace._launch_kernel(grid,
+                                                                    *rays),
+            walk=walks["W32"], walk_w8=walks["W8"], ref=ref,
+            differ=lambda a, b: int((a != b).sum()),
+            bound=cs.bound_ms(*cs.grid_work(stats, act)),
+            work={"active": int(act.sum()), "blocked": int((ref == 0).sum()),
+                  "record_visits": stats["visits"],
+                  "triangle_tests": stats["tri_tests"],
+                  **({"slab_row": slab_row} if "bake" in name else {}),
+                  **cs.walk_shape(stats, act, cs.grid_warps())})
+
     # every build against the plain versions, bit for bit
     mism = {}
     for build in names:
@@ -185,15 +227,18 @@ def main(argv=None):
 
     times = {f"{b} {c}": [] for b in names for c in jobs}
     walk = {c: [] for c in jobs}
+    walk_w8 = {c: [] for c in jobs if "walk_w8" in jobs[c]}
     for build in turns:
         _use(libs, build)
         for name, job in jobs.items():
             job["run"]()
             ms, _ = cs.cuda_ms(job["run"], repeat=REPEAT)
             times[f"{build} {name}"].append(ms)
-            job["walk"]()
-            ms, _ = cs.cuda_ms(job["walk"], repeat=REPEAT)
-            walk[name].append(ms)
+            for key, spent in (("walk", walk), ("walk_w8", walk_w8)):
+                if key in job:
+                    job[key]()
+                    ms, _ = cs.cuda_ms(job[key], repeat=REPEAT)
+                    spent[name].append(ms)
     _use(libs, "change")
 
     rows = {}
@@ -202,18 +247,22 @@ def main(argv=None):
         for build in names:
             ts = times[f"{build} {name}"]
             ms = statistics.mean(ts)
+            w8 = (statistics.mean(walk_w8[name]) if name in walk_w8
+                  else None)
             rows[f"{build} {name}"] = {
                 "ms": ms, "ms_turns": ts, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_share": b_ms / ms,
                 "per_ray_walk_ms": statistics.mean(walk[name]),
+                **({"per_ray_w8_walk_ms": w8} if w8 is not None else {}),
                 "mismatches_vs_plain": mism[f"{build} {name}"],
                 **job["work"]}
             print(f"{name} {build}: {ms:.4f} ms (turns "
                   + ", ".join(f"{t:.4f}" for t in ts)
                   + f"), bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%}), "
-                  f"per-ray walk {statistics.mean(walk[name]):.4f} ms, "
-                  f"differ {mism[f'{build} {name}']}; {job['work']} [{smi}]",
-                  flush=True)
+                  f"per-ray walk {statistics.mean(walk[name]):.4f} ms"
+                  + (f" (W32), {w8:.4f} ms (W8)" if w8 is not None else "")
+                  + f", differ {mism[f'{build} {name}']}; {job['work']} "
+                  f"[{smi}]", flush=True)
     out_dir = REPO_ROOT / "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
     with open(out_dir / "engine_ab.json", "w") as f:
@@ -221,6 +270,7 @@ def main(argv=None):
                    "alt": ALT, "packet_variants": variants, "ptxas": builds,
                    "resident_warps": warps,
                    "rows": rows, "per_ray_walk_ms_turns": walk,
+                   "per_ray_w8_walk_ms_turns": walk_w8,
                    "edge_cases": edges}, f, indent=1)
     if any(mism.values()):
         raise SystemExit(f"engine_ab: builds differ from the plain "

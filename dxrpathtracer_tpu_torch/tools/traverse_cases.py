@@ -1,7 +1,7 @@
 """Adversarial inputs for the BVH walk: scenes and rays whose walks reach
-every tie rule of the traversal. numpy only (but for the two helpers that
-run the port, `alpha_case_scene` and `packet_stack_height`), made from a
-seed.
+every tie rule of the traversal. numpy only (but for the three helpers that
+use the port, `alpha_case_scene`, `packet_stack_height` and `grid_scene`'s
+BoxTest), made from a seed.
 
 Two cases, each a triangle scene (v0, v1, v2: (T, 3) float32) and a ray set
 (o, d: (N, 3) float32; tmin, tmax: (N,) float32; active: (N,) bool):
@@ -53,7 +53,14 @@ and chip_smoke.py E1):
   - `proxy_edge_rays`, for the dense-proxy screen: n not a multiple of 32,
     a fifth inactive, t_max <= t_min on some lanes, and axis-aligned
     directions whose zero components are +0 or -0; with `soup` and the
-    BoxTest scene they give K = 8, 24 and 1,365 (the kernel's most).
+    BoxTest scene they give K = 8, 24 and 1,365 (the kernel's most);
+  - `grid_edge_cases`, for the sun-space grid walk on a given grid (the
+    grids of `GRID_SCENES`: three seeded soups, one of them with a 96-cell
+    grid and one with a steep sun, and BoxTest): origins on cell borders,
+    outside the grid's box and with a NaN component, empty cells, thr equal
+    to a record's suffix- and own-zmax, the longest chain, t_max <= t_min,
+    inactive lanes and ragged n (tests/test_torch_sunspace.py and
+    chip_smoke.py E1).
 """
 
 import numpy as np
@@ -459,3 +466,310 @@ def packet_stack_height(bvh, rays, first_hit=False):
     finally:
         packet.stack_step = step
     return most
+
+
+# ---------------------------------------------------------------------------
+# The sun-space grid's edge cases
+# ---------------------------------------------------------------------------
+
+GRID_SUN = (0.3, 0.9, -0.2)
+# the grids of tests/test_torch_sunspace.py: name: (soup seed or "boxtest",
+# triangles, sun, grid size)
+GRID_SCENES = {"soup512": (1, 500, GRID_SUN, 512),
+               "soup96": (4, 1500, GRID_SUN, 96),
+               "steep_sun": (2, 800, (0.1, -0.2, 0.95), 512),
+               "boxtest": ("boxtest", 0, None, 512)}
+GRID_NEXT, GRID_SUFZ, GRID_OWNZ = 120, 121, 122  # a record's tail slots
+GRID_DONE = 0x7FFFFFFF
+
+
+def grid_scene(name):
+    """(v0, v1, v2, unit sun, grid size) of a grid of GRID_SCENES: a seeded
+    soup, or BoxTest (the port's scene, loaded) and its sun."""
+    seed, t, sun, size = GRID_SCENES[name]
+    if seed == "boxtest":
+        from ..app.settings import Scenes
+        from ..scene.registry import load_scene
+        scene, preset = load_scene(Scenes.BoxTest)
+        pos, tri = scene.positions.numpy(), scene.tri_idx.numpy()
+        v0, v1, v2 = pos[tri[:, 0]], pos[tri[:, 1]], pos[tri[:, 2]]
+        sun = preset.sun_direction
+    else:
+        rng = np.random.default_rng(seed)
+        base = rng.uniform(-10, 10, (t, 1, 3)).astype(np.float32)
+        tris = base + rng.normal(0, 0.8, (t, 3, 3)).astype(np.float32)
+        v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
+    sun = np.asarray(sun, np.float32)
+    sun = sun / np.linalg.norm(sun)
+    return (v0.astype(np.float32), v1.astype(np.float32),
+            v2.astype(np.float32), sun, size)
+
+
+def grid_project(o, basis):
+    """(px, py, sun depth) of origins o as the grid walk sums them: f32,
+    left to right, each product and sum rounded on its own."""
+    o = np.asarray(o, np.float32)
+    b = np.asarray(basis, np.float32)
+    return tuple((o[:, 0] * b[k, 0] + o[:, 1] * b[k, 1]) + o[:, 2] * b[k, 2]
+                 for k in range(3))
+
+
+def grid_cells(o, params, basis, size):
+    """(cx, cy) int64 of origins o: floor, clip, NaN to 0, as the walk."""
+    px, py, _ = grid_project(o, basis)
+    p = np.asarray(params, np.float32)
+    out = []
+    for q, g0, inv in ((px, p[0], p[2]), (py, p[1], p[3])):
+        with np.errstate(invalid="ignore"):
+            f = np.clip(np.floor((q - g0) * inv), 0, size - 1)
+        out.append(np.nan_to_num(f, nan=0.0).astype(np.int64))
+    return tuple(out)
+
+
+def grid_chain(table, code):
+    """The rows of the chain that starts at `code`, in walk order."""
+    rows = []
+    while code != GRID_DONE:
+        rows.append(~code)
+        code = int(table[~code, GRID_NEXT:GRID_NEXT + 1].view(np.int32)[0])
+    return rows
+
+
+def _chain_lengths(table):
+    """(rows,) length of the chain from each row (a record's next row
+    always precedes it in the table)."""
+    nxt = table[:, GRID_NEXT].view(np.int32)
+    length = np.zeros(len(table), np.int64)
+    for r in range(len(table)):
+        length[r] = 1 + (length[~nxt[r]] if nxt[r] != GRID_DONE else 0)
+    return length
+
+
+def _origins(basis, px, py, depth):
+    """f32 origins whose projections are about (px, py, depth)."""
+    b = np.asarray(basis, np.float64)
+    return (np.asarray(px, np.float64)[:, None] * b[0]
+            + np.asarray(py, np.float64)[:, None] * b[1]
+            + np.asarray(depth, np.float64)[:, None] * b[2]).astype(np.float32)
+
+
+def _cell_centres(params, cx, cy):
+    p = np.asarray(params, np.float64)
+    return (p[0] + (np.asarray(cx) + 0.5) / p[2],
+            p[1] + (np.asarray(cy) + 0.5) / p[3])
+
+
+def _ulp_search(o, coord, value_of, want, tries=96):
+    """Each origin of o moved by the fewest whole ulps (at most `tries`)
+    along coordinate `coord` at which want(value_of(o)) holds; (moved o,
+    found mask)."""
+    o = o.copy()
+    found = want(value_of(o))
+    up, down = o[:, coord].copy(), o[:, coord].copy()
+    for _ in range(tries):
+        if found.all():
+            break
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(-np.inf))
+        for cand in (up, down):
+            trial = o.copy()
+            trial[:, coord] = cand
+            ok = ~found & want(value_of(trial))
+            o[ok] = trial[ok]
+            found |= ok
+    return o, found
+
+
+def _ray_set(o, d, tmin, tmax, active):
+    n = len(o)
+    return dict(o=np.asarray(o, np.float32),
+                d=np.broadcast_to(np.asarray(d, np.float32), (n, 3)).copy(),
+                tmin=np.broadcast_to(np.float32(tmin), (n,)).astype(
+                    np.float32),
+                tmax=np.broadcast_to(np.float32(tmax), (n,)).astype(
+                    np.float32),
+                active=np.broadcast_to(np.asarray(active, bool), (n,)).copy())
+
+
+def grid_edge_cases(table, index, params, basis, size, sun=None, seed=0):
+    """{name: rays} of the grid walk's edge cases on a grid (its table,
+    index, params and basis as numpy arrays, its cells per axis), every ray
+    along `sun`, the direction the grid was built for (by default its basis
+    row 2, which may differ from it in the last bit):
+
+      - "borders": origins whose (p - g0) * inv is an exact integer on one
+        axis, the other or both (cell borders), moved there ulp by ulp;
+      - "outside": origins outside the grid's box on one axis or both, which
+        clip to edge cells;
+      - "nan": a NaN origin component (the cell is 0, thr is NaN);
+      - "empty_cell": origins in cells whose index is DONE;
+      - "thr_suffix" / "thr_own": thr = (o . w) + t_min exactly equal to a
+        chain record's suffix-zmax / own-zmax, records all along chains;
+      - "longest_chain": origins in the cells of the longest chain, below
+        every record, half of them with t_max so small that nothing blocks
+        them (they walk the whole chain);
+      - "limits": t_max == t_min and t_max < t_min on some lanes, a third
+        inactive, the first 32 all inactive (a fetch with no active ray);
+      - "ragged": 37 random rays (n a multiple of neither 32 nor 4); and
+        "single": one ray.
+    The sets that keep only the rays a search placed ("borders", the thr
+    sets, "longest_chain") may come out shorter than asked."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    table = np.asarray(table, f32)
+    index = np.asarray(index, np.int32)
+    params = np.asarray(params, f32)
+    basis = np.asarray(basis, f32)
+    sun = basis[2] if sun is None else np.asarray(sun, f32)
+    span_x, span_y = size / float(params[2]), size / float(params[3])
+    own = table[:, GRID_OWNZ]
+    zlo, zhi = float(own.min()) - 4.0, float(own.max()) + 1.0
+
+    def random_xy(m, margin=0.0):
+        return (params[0] + rng.uniform(-margin, 1 + margin, m) * span_x,
+                params[1] + rng.uniform(-margin, 1 + margin, m) * span_y)
+
+    def limits(m):
+        tmin = rng.choice(f32([0.0, 1e-4, 0.5]), m)
+        tmax = rng.choice(f32([2.0, 1e30]), m, p=[0.3, 0.7])
+        return tmin, tmax
+
+    out = {}
+    # cell borders: the up axis of the basis (the zero component of row 0)
+    # moves py alone, another coordinate px
+    c_y = int(np.flatnonzero(basis[0] == 0)[0])
+    c_x = int(np.argmax(np.where(np.arange(3) == c_y, -1, np.abs(basis[0]))))
+    m = 95
+    kx = rng.integers(1, size, m)
+    ky = rng.integers(1, size, m)
+    bx = params[0] + kx.astype(np.float64) / float(params[2])
+    by = params[1] + ky.astype(np.float64) / float(params[3])
+    cx0, cy0 = _cell_centres(params, rng.integers(0, size, m),
+                             rng.integers(0, size, m))
+    which = np.arange(m) % 3  # 0: x border, 1: y border, 2: both
+    o = _origins(basis, np.where(which != 1, bx, cx0),
+                 np.where(which != 0, by, cy0), rng.uniform(zlo, zhi, m))
+
+    def integral(axis):
+        g0, inv = params[axis], params[2 + axis]
+
+        def value(oo):
+            return (grid_project(oo, basis)[axis] - g0) * inv
+        return value, lambda f: f == np.floor(f)
+
+    vx, wx = integral(0)
+    vy, wy = integral(1)
+    on_x, on_y = which != 1, which != 0
+    o[on_x], fx = _ulp_search(o[on_x], c_x, vx, wx)
+    o[on_y], fy = _ulp_search(o[on_y], c_y, vy, wy)
+    keep = np.ones(m, bool)
+    keep[np.flatnonzero(on_x)[~fx]] = False
+    keep[np.flatnonzero(on_y)[~fy]] = False
+    # moving along c_y leaves px as it was: the x borders hold
+    keep &= ~on_x | wx(vx(o))
+    tmin, tmax = limits(m)
+    o, tmin, tmax = o[keep], tmin[keep], tmax[keep]
+    out["borders"] = _ray_set(o, sun, tmin, tmax, True)
+
+    m = 63
+    px, py = random_xy(m)
+    side = rng.integers(0, 3, m)  # 0: x outside, 1: y outside, 2: both
+    far_x = np.where(rng.random(m) < 0.5, params[0] - rng.uniform(
+        0.01, 2, m) * span_x, params[0] + rng.uniform(1.01, 3, m) * span_x)
+    far_y = np.where(rng.random(m) < 0.5, params[1] - rng.uniform(
+        0.01, 2, m) * span_y, params[1] + rng.uniform(1.01, 3, m) * span_y)
+    o = _origins(basis, np.where(side != 1, far_x, px),
+                 np.where(side != 0, far_y, py), rng.uniform(zlo, zhi, m))
+    tmin, tmax = limits(m)
+    out["outside"] = _ray_set(o, sun, tmin, tmax, True)
+
+    m = 33
+    px, py = random_xy(m)
+    o = _origins(basis, px, py, rng.uniform(zlo, zhi, m))
+    o[np.arange(m), rng.integers(0, 3, m)] = np.nan
+    tmin, tmax = limits(m)
+    out["nan"] = _ray_set(o, sun, tmin, tmax, True)
+
+    empty = np.flatnonzero(index == GRID_DONE)
+    if empty.size:
+        pick = rng.choice(empty, min(63, empty.size), replace=False)
+        cx, cy = _cell_centres(params, pick % size, pick // size)
+        o = _origins(basis, cx, cy,
+                     rng.uniform(zlo, zhi, pick.size))
+        tmin, tmax = limits(pick.size)
+        out["empty_cell"] = _ray_set(o, sun, tmin, tmax, True)
+
+    # thr on a record's suffix- and own-zmax: origins in cells whose chains
+    # hold 2 or more records, below the record, t_min searched ulp by ulp
+    lengths = _chain_lengths(table)
+    heads = np.flatnonzero(index != GRID_DONE)
+    long_heads = heads[lengths[~index[heads]] >= 2]
+    pool = long_heads if long_heads.size else heads
+    for name, slot in (("thr_suffix", GRID_SUFZ), ("thr_own", GRID_OWNZ)):
+        m = 63
+        cells = rng.choice(pool, m)
+        rows = np.array([rng.choice(grid_chain(table, int(index[c])))
+                         for c in cells])
+        target = table[rows, slot]
+        cx, cy = _cell_centres(params, cells % size, cells // size)
+        o = _origins(basis, cx, cy,
+                     target.astype(np.float64) - rng.uniform(0.5, 3.0, m))
+        depth = grid_project(o, basis)[2]
+        tmin = (target - depth).astype(f32)
+        hit = (depth + tmin) == target
+        for _ in range(64):
+            if hit.all():
+                break
+            tmin = np.where(hit, tmin, np.where((depth + tmin) < target,
+                                                np.nextafter(tmin, f32(np.inf)),
+                                                np.nextafter(tmin,
+                                                             f32(-np.inf))))
+            hit = (depth + tmin) == target
+        gx, gy = grid_cells(o, params, basis, size)
+        keep = hit & (gy * size + gx == cells)
+        tmax = rng.choice(f32([2.0, 1e30]), m)
+        out[name] = _ray_set(o[keep], sun, tmin[keep], tmax[keep], True)
+
+    # the longest chain, walked to its end by the rays that nothing blocks
+    head_len = lengths[~index[heads]]
+    longest = heads[head_len == head_len.max()]
+    m = 65
+    cells = rng.choice(longest, m)
+    p = np.asarray(params, np.float64)
+    cx = p[0] + (cells % size + rng.uniform(0.1, 0.9, m)) / p[2]
+    cy = p[1] + (cells // size + rng.uniform(0.1, 0.9, m)) / p[3]
+    o = _origins(basis, cx, cy,
+                 np.full(m, float(own.min()) - 2.0))
+    gx, gy = grid_cells(o, params, basis, size)
+    keep = gy * size + gx == cells
+    tmax = np.where(np.arange(m) % 2 == 0, f32(1e-6), f32(1e30))
+    out["longest_chain"] = _ray_set(o[keep], sun, 0.0, tmax[keep], True)
+
+    m = 161
+    px, py = random_xy(m)
+    o = _origins(basis, px, py, rng.uniform(zlo, zhi, m))
+    tmin, tmax = limits(m)
+    bad = rng.random(m) < 0.3
+    tmax = np.where(bad, np.where(rng.random(m) < 0.5, tmin,
+                                  tmin - f32(0.25)), tmax).astype(f32)
+    active = rng.random(m) > 1 / 3
+    active[:32] = False
+    out["limits"] = _ray_set(o, sun, tmin, tmax, active)
+
+    for name, m in (("ragged", 37), ("single", 1)):
+        px, py = random_xy(m, 0.05)
+        o = _origins(basis, px, py, rng.uniform(zlo, zhi, m))
+        tmin, tmax = limits(m)
+        out[name] = _ray_set(o, sun, tmin, tmax, True)
+    return out
+
+
+def concat_rays(sets):
+    """One ray set of the sets (a dict of ray dicts), in order; (rays,
+    {name: slice})."""
+    slices, start = {}, 0
+    for name, rays in sets.items():
+        slices[name] = slice(start, start + len(rays["o"]))
+        start += len(rays["o"])
+    return ({f: np.concatenate([r[f] for r in sets.values()])
+             for f in RAY_FIELDS}, slices)

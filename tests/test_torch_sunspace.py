@@ -8,7 +8,12 @@ grid, csrc/sungrid.cu's module) against dxrpathtracer_tpu.
   - The plain walk (the kernel's plain version, which the port runs on the
     CPU): visibility equal on every lane to the JAX package's sun_any_hit
     (in a subprocess whose XLA:CPU emits no FMA, as
-    tests/test_torch_traverse.py runs it) and to the port's per-ray any_hit.
+    tests/test_torch_traverse.py runs it) and to the port's per-ray any_hit;
+    on the grid edge cases of tools/traverse_cases.py (cell borders, origins
+    outside the box or NaN, empty cells, thr on a record's suffix- and
+    own-zmax, the longest chain, t_max <= t_min, inactive lanes, ragged n)
+    equal to the JAX package's and never less occluded than the per-ray
+    walk, each case reaching what it is for.
   - The session builds its grid when the first path-traced sample needs it
     (not at init, not for a raster frame), again when the sun moves, and
     drops it when enable_sunspace_shadows is off; the bake routes its sun
@@ -36,6 +41,7 @@ from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes  # noqa: E4
 from dxrpathtracer_tpu_torch.bake.baker import Baker  # noqa: E402
 from dxrpathtracer_tpu_torch.convert import sun_grid_from_reference  # noqa: E402
 from dxrpathtracer_tpu_torch.scene.registry import load_scene  # noqa: E402
+from dxrpathtracer_tpu_torch.tools import traverse_cases as tc  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUN = (0.3, 0.9, -0.2)
@@ -75,6 +81,17 @@ def _case(name):
 
 _FIELDS = ("v0", "v1", "v2", "sun", "size", "o", "tmin", "tmax", "active")
 
+
+def _edge_case(name):
+    """(the grid's (v0, v1, v2, unit sun, size), the port's grid, its edge
+    rays concatenated (numpy), {edge set: slice}) of a case's grid."""
+    scene = tc.grid_scene(name)
+    grid = sunspace.build_sun_grid(*scene[:4], grid_size=scene[4])
+    rays, slices = tc.concat_rays(tc.grid_edge_cases(
+        grid.table.numpy(), grid.index.numpy(), grid.params.numpy(),
+        grid.basis.numpy(), grid.grid_size, sun=scene[3]))
+    return scene, grid, rays, slices
+
 _SCRIPT = r"""
 import sys
 import numpy as np
@@ -110,6 +127,10 @@ def reference(tmp_path_factory):
     for name in CASES:
         for f, a in zip(_FIELDS, _case(name)):
             inputs[name + "__" + f] = np.asarray(a)
+        scene, _, rays, _ = _edge_case(name)
+        for f, a in zip(_FIELDS, (*scene, rays["o"], rays["tmin"],
+                                  rays["tmax"], rays["active"])):
+            inputs["edge_" + name + "__" + f] = np.asarray(a)
     src, dst = tmp / "in.npz", tmp / "out.npz"
     np.savez(src, **inputs)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
@@ -158,6 +179,74 @@ def test_plain_walk_matches_jax_and_the_walk(reference, name):
     assert 0 < blocked < int(active.sum()) and stats["visits"] > 0
     # the filled triangles up to the first blocking one of each tested record
     assert stats["tested"] <= stats["tri_tests"] <= stats["tested"] * 12
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_walk_matches_jax_on_grid_edge_cases(reference, name):
+    (v0, v1, v2, sun, size), grid, r, sl = _edge_case(name)
+    if name != "boxtest":  # the grid is the one of the cases above
+        for got, want in zip((v0, v1, v2, sun), _case(name)):
+            np.testing.assert_array_equal(got, want)
+    rays = tuple(torch.from_numpy(r[f]) for f in tc.RAY_FIELDS)
+    o, d, tmin, tmax, active = rays
+    stats = {}
+    vis = sunspace.sun_any_hit_plain(grid, *rays, stats=stats)
+    assert torch.equal(sunspace.sun_any_hit(grid, *rays), vis)
+    np.testing.assert_array_equal(vis.numpy(),
+                                  reference["edge_" + name + "__vis"])
+    walk = traverse.any_hit(build_bvh(v0, v1, v2, width=8), *rays)
+    assert not bool((vis > walk).any())  # never less occluded than the walk
+    steps = stats["lane_steps"].numpy()
+    vis, act = vis.numpy(), r["active"]
+    print(f"{name}: " + ", ".join(
+        f"{k} {s.stop - s.start} ({int((vis[s] == 0).sum())} blocked)"
+        for k, s in sl.items()))
+    assert (vis[~act] == 1).all() and (steps[~act] == 0).all()
+    assert (vis[act & (r["tmax"] <= r["tmin"])] == 1).all()
+    assert sl["ragged"].stop - sl["ragged"].start == 37  # not 32k, not 4k
+    table = grid.table.numpy()
+    p = grid.params.numpy()
+    b = grid.basis.numpy()
+    px, py, depth = tc.grid_project(r["o"], b)
+    cx, cy = tc.grid_cells(r["o"], p, b, size)
+    # cell borders: (p - g0) * inv an exact integer on an axis
+    s = sl["borders"]
+    fx, fy = (px[s] - p[0]) * p[2], (py[s] - p[1]) * p[3]
+    assert s.stop - s.start >= 30
+    assert ((fx == np.floor(fx)) | (fy == np.floor(fy))).all()
+    assert ((fx == np.floor(fx)) & (fy == np.floor(fy))).any()
+    # outside the grid's box: clipped to an edge cell
+    s = sl["outside"]
+    f = np.stack([(px[s] - p[0]) * p[2], (py[s] - p[1]) * p[3]])
+    assert ((f < 0) | (f >= size)).any(axis=0).all()
+    assert ((cx[s] == 0) | (cx[s] == size - 1) | (cy[s] == 0)
+            | (cy[s] == size - 1)).all()
+    # a NaN component: cell 0, NaN thr, nothing tested, unoccluded
+    s = sl["nan"]
+    assert np.isnan(r["o"][s]).any(axis=1).all()
+    assert (cx[s] == 0).all() and (cy[s] == 0).all() and (vis[s] == 1).all()
+    # an empty cell: no step
+    if "empty_cell" in sl:
+        s = sl["empty_cell"]
+        assert (grid.index.numpy()[cy[s] * size + cx[s]] == tc.GRID_DONE).all()
+        assert (steps[s] == 0).all() and (vis[s] == 1).all()
+    # thr on a record of the ray's chain: its suffix- / own-zmax
+    thr = depth + r["tmin"]
+    for key, slot in (("thr_suffix", tc.GRID_SUFZ), ("thr_own", tc.GRID_OWNZ)):
+        s = sl[key]
+        assert s.stop - s.start >= 30
+        for i in range(s.start, s.stop):
+            chain = tc.grid_chain(table, int(grid.index[cy[i] * size
+                                                       + cx[i]]))
+            assert thr[i] in table[chain, slot], (key, i)
+    # the longest chain, walked to its end where nothing blocks
+    s = sl["longest_chain"]
+    longest = max(len(tc.grid_chain(table, int(c)))
+                  for c in np.unique(grid.index.numpy()) if c != tc.GRID_DONE)
+    free = np.zeros(len(o), bool)
+    free[s] = vis[s] == 1
+    assert free.any() and (steps[free] == longest).all()
+    assert stats["warp_records"] <= stats["visits"] == int(steps.sum())
 
 
 def test_session_builds_the_grid_when_a_sample_needs_it():
