@@ -19,21 +19,26 @@ on the stand-in at 1080p with its raster toggle, the bake window, scene
 switches, checkpoints, hot reload and crash dumps) and the traversal
 engines the default settings route through (packets for depth-1 rays, the
 sun-space grid for sun shadows, the dense-proxy and AABB-cut screens in
-front of the per-ray walks). Phases, each fatal on failure:
+front of the per-ray walks) and the seeded and binned alternates of an
+opaque closest hit that the JAX package keeps off by default (temporal hit
+reuse, proxy seeding, the software raster of camera rays). Phases, each
+fatal on failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
   2. build: compiles the traversal kernel (csrc/traverse.cu), the row-gather
      kernel (csrc/gather.cu), the engines' kernels (csrc/packet.cu,
-     csrc/sungrid.cu, csrc/screen.cu) and the native SAH and morton
+     csrc/sungrid.cu, csrc/screen.cu), the seeded routes' kernels
+     (csrc/history.cu, csrc/swraster.cu) and the native SAH and morton
      builders from the checkout, all at once, with the seconds each took;
      for each (width, first_hit, alpha) instantiation of the traversal
      kernel (eight), ptxas' registers, stack frame and spills and the warps
      one SM holds at once (the persistent grid); the opaque W32
      instantiations must have no stack frame and no spills; the same ptxas
-     figures of the five engine kernels (packet closest and any, the grid
-     walk, the proxy and cut screens), with the warps one SM holds at once
-     of the packet and screen kernels; the packet kernels (one warp per
+     figures of the eight engine kernels (packet closest and any, the grid
+     walk, the proxy and cut screens, the proxy's nearest hit, the history's
+     revalidation, the raster), with the warps one SM holds at once; the
+     packet kernels (one warp per
      packet, its stack in registers) must have no stack frame and no
      spills;
   3. traversal kernel against plain: the kernel and its plain torch version,
@@ -108,6 +113,30 @@ front of the per-ray walks). Phases, each fatal on failure:
      BoxTest on (its cut gated on) and with enable_clear_cut off: ms/frame,
      spread, launches per frame by kernel; every image within rel-RMSE
      1e-4 of its scene's engines-on image; the grid's host build seconds;
+  S. the seeded and binned routes, each on its own 1080p stand-in session
+     (its switch set while it renders), against the default route's 10
+     frames after a first on the phase 4 session: temporal history
+     (DXRPT_HISTORY=1: the second frame's depth-1 closest and sun
+     revalidations recorded, the kernel against revalidate_plain, the
+     seeded results against the packet walks on the same rays, never
+     farther nor less occluded, the lanes the revalidation resolved and
+     the sun lanes that skipped the walk), proxy seeding
+     (DXRPT_PROXY_SEED=1: the depth-2 closest class, proxy_closest against
+     its plain version, the seeded W32 walk against the unseeded one,
+     never farther) and the software raster (DXRPT_RASTER_MIN_PIXELS=1:
+     the camera rays, the raster kernel against its plain version and the
+     packet walk, never farther; its pairs, deepest tile and host binning
+     seconds): 0 lanes that differ from the plain versions in any bit,
+     times of kernel, plain, bound (the revalidation by bytes, the others
+     by the tests they make) and of the per-ray and packet walks on the
+     same rays; each route's 10 frames after a first: ms/frame, spread,
+     launches per frame (2 revalidations, 1 proxy_closest, 1 raster) and
+     the image within rel-RMSE 1e-4 of the default route's; the edge
+     cases, each kernel against its plain version: predictions of -1,
+     stale, beyond t_max, inactive lanes and n = 2045; proxy_edge_rays at
+     K = 8, 1,365 and 24; the raster on traverse_cases.raster_edge_scene
+     (a tile of 804 triangles, empty tiles, a repeated quad: the lower id,
+     a triangle through the near plane);
   5. same frame, kernel against plain: one 240x135 sample on the card and
      on the CPU; relative RMSE <= 1e-4;
   A. alpha ray classes, kernel against plain: on the SponzaAlpha-checker
@@ -296,12 +325,19 @@ record visit and PROXY_OPS per filled triangle of each tested record up to
 the first blocking one; PROXY_OPS or CUT_OPS per column a lane tests up to
 its first blocking triangle or overlapped box.
 
+A revalidated lane moves its prediction, ray and outputs (50 B) and each
+distinct predicted row (36 B); proxy_closest and the raster move their
+rays (33 B in, 16 B out), the columns or pair lists and rows, and do
+MT_OPS per triangle test they make (every column of an active lane; every
+pair's triangle against its tile's active lanes).
+
 The line before the last is {"kernels": [...]}: one entry per traversal
 instantiation, one for the gather kernel and one for each engine kernel
-(packet_closest, packet_any, sun_any_hit, proxy_blocked, cut_clear), whose
-`launches` count the main paths' runs (the opaque frame, the alpha frames,
-the bake, the raster frames of R1 and R2, the imported frames of F, the
-animation of AN, the viewer of I1-I3, and E2's frames and bake steps) and
+(packet_closest, packet_any, sun_any_hit, proxy_blocked, cut_clear,
+history_revalidate, proxy_closest, raster_closest_hit), whose `launches`
+count the main paths' runs (the opaque frame, the alpha frames, the bake,
+the raster frames of R1 and R2, the imported frames of F, the animation of
+AN, the viewer of I1-I3, E2's frames and bake steps and S's routes) and
 every one of which must be > 0; the last is {"ok": true, "device": {...}}.
 Full results also go to chiprun_out/chip_smoke.json. Exits non-zero, with
 no result line, when there is no CUDA device or any phase fails. Imports no
@@ -337,7 +373,15 @@ ENGINE_KERNELS = {
                       "dxrpathtracer_tpu/accel/proxy.py:154"),
     "cut_clear": ("dxrpathtracer_tpu_torch/csrc/screen.cu",
                   "dxrpathtracer_tpu/accel/proxy.py:346"),
+    "history_revalidate": ("dxrpathtracer_tpu_torch/csrc/history.cu",
+                           "dxrpathtracer_tpu/accel/history.py:50"),
+    "proxy_closest": ("dxrpathtracer_tpu_torch/csrc/screen.cu",
+                      "dxrpathtracer_tpu/accel/proxy.py:112"),
+    "raster_closest_hit": ("dxrpathtracer_tpu_torch/csrc/swraster.cu",
+                           "dxrpathtracer_tpu/render/swraster.py:360"),
 }
+# the engines of phase S, which only their own routes launch
+ROUTE_KERNELS = ("history_revalidate", "proxy_closest", "raster_closest_hit")
 # Where and at what size the phases run: the card at full size. (A rehearsal
 # on the CPU may shrink them; the card's run never does.)
 DEVICE = "cuda"
@@ -379,6 +423,7 @@ GRID_RAY_BYTES = 41
 GRID_RAY_OPS = 25
 GRID_STEP_OPS = 3
 E_FRAMES = 10           # E2: frames after the first, per configuration
+S_FRAMES = 10           # S: frames after the first, per route
 E3_SIZE = (256, 128)    # E3: BoxTest card vs CPU, a packet-tileable size
 ENGINE_FIELDS = ("enable_packet_traversal", "enable_sunspace_shadows",
                  "enable_sw_raster", "enable_dense_proxy", "enable_clear_cut")
@@ -432,8 +477,9 @@ def phase_build():
     """Builds the four native libraries at once (one compiler each)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from dxrpathtracer_tpu_torch.accel import (bvh, gather, packet, proxy,
-                                               sunspace, traverse)
+    from dxrpathtracer_tpu_torch.accel import (bvh, gather, history, packet,
+                                               proxy, sunspace, traverse)
+    from dxrpathtracer_tpu_torch.render import swraster
 
     def timed(fn):
         t0 = time.time()
@@ -445,6 +491,8 @@ def phase_build():
             "packet_s": packet.kernel_library,
             "sungrid_s": sunspace.kernel_library,
             "screen_s": proxy.kernel_library,
+            "history_s": history.kernel_library,
+            "swraster_s": swraster.kernel_library,
             "sah_builder_s": bvh.sah_library,
             "lbvh_builder_s": bvh.lbvh_library}
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -454,7 +502,8 @@ def phase_build():
         f"{secs['traverse_s']:.2f} s, gather.cu (nvcc sm_90a) "
         f"{secs['gather_s']:.2f} s, packet.cu {secs['packet_s']:.2f} s, "
         f"sungrid.cu {secs['sungrid_s']:.2f} s, screen.cu "
-        f"{secs['screen_s']:.2f} s, sah_builder.cpp (g++) "
+        f"{secs['screen_s']:.2f} s, history.cu {secs['history_s']:.2f} s, "
+        f"swraster.cu {secs['swraster_s']:.2f} s, sah_builder.cpp (g++) "
         f"{secs['sah_builder_s']:.2f} s, lbvh_builder.cpp (g++) "
         f"{secs['lbvh_builder_s']:.2f} s")
     for line in gather.BUILD_LOG.splitlines():
@@ -477,7 +526,9 @@ def phase_build():
                                 for k, row in kernels.items()}
     engines = {}
     warps = engine_resident_warps(packet, sunspace, proxy)
-    for lib in (packet, sunspace, proxy):
+    warps["history_revalidate"] = history.resident_warps()
+    warps["raster_closest_hit"] = swraster.resident_warps()
+    for lib in (packet, sunspace, proxy, history, swraster):
         for name, row in ptxas_entries(lib.BUILD_LOG).items():
             if name in warps:
                 row["resident_warps_per_sm"] = warps[name]
@@ -491,7 +542,7 @@ def phase_build():
                 raise SystemExit(f"chip_smoke: the {name} kernel uses local "
                                  f"memory: {row}")
     want = {"packet_closest", "packet_any", "sun_any_hit", "proxy_blocked",
-            "cut_clear"}
+            "cut_clear", *ROUTE_KERNELS}
     if set(engines) != want:
         raise SystemExit(f"chip_smoke: ptxas reported engine kernels "
                          f"{sorted(engines)}, want {sorted(want)}")
@@ -514,6 +565,8 @@ def engine_resident_warps(packet, sunspace, proxy):
            "sun_any_hit": sunspace.resident_warps(),
            "proxy_blocked": slib.dxrpt_screen_resident_warps(
                1, proxy.PROXY_K),
+           "proxy_closest": slib.dxrpt_screen_resident_warps(
+               2, proxy.PROXY_K),
            "cut_clear": slib.dxrpt_screen_resident_warps(0, proxy.CUT_C)}
     if min(out.values()) <= 0:
         raise SystemExit(f"chip_smoke: occupancy queries failed: {out}")
@@ -523,12 +576,16 @@ def engine_resident_warps(packet, sunspace, proxy):
 def ptxas_entries(log_text):
     """{kernel: registers, stack frame and spills} of the engines' kernels
     in nvcc's -Xptxas -v output (packet_kernel<false/true>, sungrid_kernel,
-    proxy_kernel, cut_kernel)."""
+    proxy_kernel, proxy_closest_kernel, cut_kernel, revalidate_kernel,
+    raster_kernel)."""
     import re
     names = {"packet_kernelILb0E": "packet_closest",
              "packet_kernelILb1E": "packet_any",
              "sungrid_kernel": "sun_any_hit", "proxy_kernel": "proxy_blocked",
-             "cut_kernel": "cut_clear"}
+             "proxy_closest_kernel": "proxy_closest",
+             "cut_kernel": "cut_clear",
+             "revalidate_kernel": "history_revalidate",
+             "raster_kernel": "raster_closest_hit"}
     out, cur = {}, None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -805,6 +862,8 @@ def phase_kernel_vs_plain(sess, label="traversal, five classes",
                        taps=taps, rejected=c.get("rejected", 0))
         if first_hit:
             row["vis_mismatches"] = int((got.hit != ref.hit).sum())
+            # the occluder ids (any_hit_rec), within `mismatches` too
+            row["occluder_mismatches"] = int((got.tri_id != ref.tri_id).sum())
         elif d1_hits is None:
             d1_hits = got.tri_id
         both = got.hit & ref.hit
@@ -983,20 +1042,25 @@ def phase_main_path(smi):
 
 
 def reset_launches():
-    from dxrpathtracer_tpu_torch.accel import (gather, packet, proxy,
+    from dxrpathtracer_tpu_torch.accel import (gather, history, packet, proxy,
                                                sunspace, traverse)
+    from dxrpathtracer_tpu_torch.render import swraster
     gather.KERNEL_LAUNCHES = 0
     traverse.KERNEL_LAUNCHES.clear()
     packet.KERNEL_LAUNCHES.update(closest=0, any=0)
     sunspace.KERNEL_LAUNCHES = 0
-    proxy.KERNEL_LAUNCHES.update(proxy_blocked=0, cut_clear=0)
+    proxy.KERNEL_LAUNCHES.update(proxy_blocked=0, proxy_closest=0,
+                                 cut_clear=0)
+    history.KERNEL_LAUNCHES = 0
+    swraster.KERNEL_LAUNCHES = 0
 
 
 def read_launches():
     """The kernel launches since reset_launches: in all and by traversal
     instantiation, and each engine kernel's."""
-    from dxrpathtracer_tpu_torch.accel import (gather, packet, proxy,
+    from dxrpathtracer_tpu_torch.accel import (gather, history, packet, proxy,
                                                sunspace, traverse)
+    from dxrpathtracer_tpu_torch.render import swraster
     return {"traverse": sum(traverse.KERNEL_LAUNCHES.values()),
             "row_gather": gather.KERNEL_LAUNCHES,
             "traverse_by_instance": {
@@ -1006,7 +1070,10 @@ def read_launches():
             "packet_any": packet.KERNEL_LAUNCHES["any"],
             "sun_any_hit": sunspace.KERNEL_LAUNCHES,
             "proxy_blocked": proxy.KERNEL_LAUNCHES["proxy_blocked"],
-            "cut_clear": proxy.KERNEL_LAUNCHES["cut_clear"]}
+            "cut_clear": proxy.KERNEL_LAUNCHES["cut_clear"],
+            "history_revalidate": history.KERNEL_LAUNCHES,
+            "proxy_closest": proxy.KERNEL_LAUNCHES["proxy_closest"],
+            "raster_closest_hit": swraster.KERNEL_LAUNCHES}
 
 
 def check_launches(label, launches, frames, traverse, **engines):
@@ -2614,13 +2681,10 @@ def phase_hot_reload(smi):
         shutil.copytree(os.path.join(ROOT, pkg), os.path.join(tmp, pkg),
                         ignore=shutil.ignore_patterns("__pycache__"))
         # what the package reads outside itself: the C++ sources of its
-        # native BVH libraries and the sky's coefficient table
+        # native BVH libraries (its data files are its own)
         shutil.copytree(os.path.join(ROOT, "native"),
                         os.path.join(tmp, "native"),
                         ignore=shutil.ignore_patterns("*.so"))
-        shutil.copytree(
-            os.path.join(ROOT, "dxrpathtracer_tpu", "sky", "data"),
-            os.path.join(tmp, "dxrpathtracer_tpu", "sky", "data"))
         t0 = time.time()
         proc = subprocess.run(
             [sys.executable, "-c", _HOT_RELOAD, tmp, *map(str, FRAME_SIZE)],
@@ -2786,9 +2850,10 @@ def bits_differ(a, b):
     return int((a.view(torch.int32) != b.view(torch.int32)).sum())
 
 
-def engine_row(name, kernel, plain, nbytes, ops, extra):
+def engine_row(name, kernel, plain, nbytes, ops, extra, phase="E1"):
     """Times kernel() (5 launches after a warm-up) and plain() (once) with
-    CUDA events and their bound; logs and returns the row."""
+    CUDA events and their bound; logs (under `phase`) and returns the
+    row."""
     kernel()
     ms, _ = cuda_ms(kernel, repeat=5)
     plain_ms, _ = cuda_ms(plain)
@@ -2796,7 +2861,7 @@ def engine_row(name, kernel, plain, nbytes, ops, extra):
     row = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
            "library_ms": None, **extra}
-    log(f"E1 {name}: " + ", ".join(
+    log(f"{phase} {name}: " + ", ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in row.items()))
     return row
@@ -3262,6 +3327,9 @@ def phase_engine_classes(sess, box_sess, smi):
         # the triangle test accepts, through a neighbour's descent): it may
         # be nearer or occluded where the walk is not, never the reverse.
         if first_hit:
+            # the occluder ids (packet_any_hit_rec), within the mismatches
+            extra["occluder_mismatches"] = int(
+                (got.tri_id != ref.tri_id).sum())
             vis_k = torch.where(act & got.hit, 0.0, 1.0)
             vis_w = torch.where(act & walk.hit, 0.0, 1.0)
             extra["vis_differ_vs_per_ray"] = int((vis_k != vis_w).sum())
@@ -3340,7 +3408,8 @@ def phase_engine_classes(sess, box_sess, smi):
             "probe_clear_fraction": probes, "card": smi}
 
 
-def engine_run(label, sess, base, fields, smi, frames=E_FRAMES):
+def engine_run(label, sess, base, fields, smi, frames=E_FRAMES,
+               phase="E2"):
     """One timed configuration of the engines: the settings with `fields`,
     the accumulation restarted, a first frame and `frames` more; returns
     its row and the image."""
@@ -3357,12 +3426,12 @@ def engine_run(label, sess, base, fields, smi, frames=E_FRAMES):
            "ms_per_frame": [t * 1e3 for t in dts],
            "spread_pct": (max(dts) - min(dts)) / med * 100.0,
            "launches_per_frame": per_frame, "kernel_launches": launches}
-    log(f"E2 {label}: {med * 1e3:.2f} ms/frame (median of {frames}, spread "
+    log(f"{phase} {label}: {med * 1e3:.2f} ms/frame (median of {frames}, spread "
         f"{row['spread_pct']:.1f}%), first {first_s:.2f} s; launches per "
         f"frame " + ", ".join(f"{k} {v:g}" for k, v in per_frame.items()
                               if v) + f" [{smi}]")
     if not bool(sess.accum.isfinite().all()):
-        raise SystemExit(f"chip_smoke: E2 {label}: image not finite")
+        raise SystemExit(f"chip_smoke: {phase} {label}: image not finite")
     return row, sess.accum.clone()
 
 
@@ -3532,6 +3601,456 @@ def animated_engines_ab(sess):
     return {"rel_rmse": rel, "bit_equal_fraction": exact}
 
 
+# ---------------------------------------------------------------------------
+# S: the seeded and binned routes (temporal history, proxy seeding, raster)
+# ---------------------------------------------------------------------------
+
+# A revalidated lane: its prediction (4 B) and ray (33 B) in, ok, t, u and v
+# (13 B) out; a predicted triangle's row, 36 B. A closest-hit ray of the
+# proxy's and the raster's nearest-hit tests: 33 B in, 16 B out.
+HISTORY_LANE_BYTES = 50
+TRI_ROW_BYTES = 36
+CLOSEST_RAY_BYTES = 49
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """The environment variable `name` set to `value` inside, as it was
+    after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+@contextlib.contextmanager
+def recording(module, fn_name, calls):
+    """module.fn_name appends the arguments of each call to `calls`."""
+    fn = getattr(module, fn_name)
+
+    def record(*args, **kw):
+        calls.append(args)
+        return fn(*args, **kw)
+
+    setattr(module, fn_name, record)
+    try:
+        yield
+    finally:
+        setattr(module, fn_name, fn)
+
+
+def hit_bits_differ(got, ref):
+    """Lanes whose t, u or v differ in any bit or whose triangle differs."""
+    return sum(bits_differ(getattr(got, f), getattr(ref, f))
+               for f in ("t", "u", "v")) + int((got.tri_id != ref.tri_id).sum())
+
+
+def against_walk(got, walk):
+    """{lanes whose t differs from the walk's, of them nearer, and lanes of
+    another triangle at an equal t}."""
+    t_diff = got.t.view(torch.int32) != walk.t.view(torch.int32)
+    return {"t_differ": int(t_diff.sum()),
+            "t_nearer": int((got.t < walk.t).sum()),
+            "t_farther": int((got.t > walk.t).sum()),
+            "equal_t_other_triangle": int(
+                ((got.tri_id != walk.tri_id) & ~t_diff).sum())}
+
+
+def walk_ms(fns):
+    """{name: mean ms of 5 launches after a warm-up} of the walks."""
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        out[name] = cuda_ms(fn, repeat=5)[0]
+    return out
+
+
+def route_run(label, sess, base_img, smi, kernel, per_frame):
+    """A route's frames (engine_run: the accumulation restarted, a first
+    frame and S_FRAMES more): ms/frame, launches, and the image against the
+    default route's; `kernel` must launch `per_frame` times a frame."""
+    row, img = engine_run(label, sess, sess.settings, {}, smi,
+                          frames=S_FRAMES, phase="S")
+    row["rel_rmse_vs_default"] = rel_rmse(img, base_img)
+    row["pixels_differ_vs_default"] = int((img != base_img).any(dim=-1).sum())
+    got = row["kernel_launches"][kernel]
+    log(f"S {label}: image vs the default route rel RMSE "
+        f"{row['rel_rmse_vs_default']:.3e}, {row['pixels_differ_vs_default']} "
+        f"pixels differ; {kernel} {got} launches [{smi}]")
+    if (row["rel_rmse_vs_default"] > 1e-4
+            or got != per_frame * (S_FRAMES + 1)):
+        raise SystemExit(f"chip_smoke: S {label}: {row}")
+    return row
+
+
+def s_history(base_img, smi):
+    """S, temporal history: a session built with DXRPT_HISTORY=1; the
+    second frame's depth-1 closest and sun calls recorded (their
+    predictions are the first frame's hits and occluders): the
+    revalidation kernel against its plain version, the seeded results
+    against the default route's packet walks on the same rays, the walks'
+    times; then the route's frames."""
+    from dxrpathtracer_tpu_torch.accel import history, packet, traverse
+    with env_var("DXRPT_HISTORY", "1"):
+        sess = engine_session("Sponza")
+    if sess.tri_table is None:
+        raise SystemExit("chip_smoke: S history: no triangle table")
+    sess.reset_accumulation()
+    sess.render_frame()
+    calls = []
+    with recording(history, "revalidate", calls):
+        sess.render_frame()
+    sync()
+    if len(calls) != 2:
+        raise SystemExit(f"chip_smoke: S history: {len(calls)} revalidations "
+                         f"in a frame, want 2")
+    rows = {}
+    bvh = sess.bvh
+    for name, args in zip(("d1_closest", "d1_sun"), calls):
+        lanes = history._lanes(*(a.clone() if isinstance(a, torch.Tensor)
+                                 else a for a in args))
+        table, pred, o, d, tmin, tmax, act = lanes
+        n = o.shape[0]
+        ref = history.revalidate_plain(*lanes)
+        got = history._launch_kernel(*lanes)
+        mism = int((got[0] != ref[0]).sum()) + sum(
+            bits_differ(g, r) for g, r in zip(got[1:], ref[1:]))
+        ok = got[0]
+        rows_read = int(torch.unique(torch.clamp(pred, 0)).numel())
+        extra = {"rays": n, "active": int(act.sum()),
+                 "predicted": int((act & (pred >= 0)).sum()),
+                 "revalidated": int(ok.sum()), "rows_read": rows_read,
+                 "mismatches_vs_plain": mism, "max_abs_err": 0.0}
+        if name == "d1_closest":
+            pk = lambda *r: packet.packet_closest_hit(bvh, *r)  # noqa: E731
+            seeded, _ = history.seeded_closest(pk, table, pred, o, d, tmin,
+                                               tmax, act)
+            walk = pk(o, d, tmin, tmax, act)
+            cmp_ = against_walk(seeded, walk)
+            bound = torch.where(ok, got[1], tmax)
+            # where the walk under the bound finds nothing nearer, the
+            # prediction is the hit
+            under = pk(o, d, tmin, bound, act)
+            extra.update(cmp_, prediction_taken=int(
+                (ok & (under.tri_id < 0)).sum()))
+            bad = cmp_["t_farther"]
+            extra["walk_ms"] = walk_ms({
+                "packet": lambda: pk(o, d, tmin, tmax, act),
+                "packet_seeded_bound": lambda: pk(o, d, tmin, bound, act),
+                "per_ray_W8": lambda: traverse.closest_hit(bvh, o, d, tmin,
+                                                           tmax, act)})
+        else:
+            rec = lambda *r: packet.packet_any_hit_rec(bvh, *r)  # noqa: E731
+            vis, _ = history.seeded_any(rec, table, pred, o, d, tmin, tmax,
+                                        act)
+            walk_vis, occ = rec(o, d, tmin, tmax, act)
+            extra.update(
+                vis_differ=int((vis != walk_vis).sum()),
+                vis_above_walk=int((vis > walk_vis).sum()),
+                skipped_the_walk=int(ok.sum()),
+                occluded=int((act & (walk_vis == 0)).sum()))
+            bad = extra["vis_above_walk"]
+            rest = act & ~ok
+            extra["walk_ms"] = walk_ms({
+                "packet": lambda: rec(o, d, tmin, tmax, act),
+                "packet_unresolved_lanes": lambda: rec(o, d, tmin, tmax,
+                                                       rest),
+                "per_ray_W8": lambda: traverse.any_hit(bvh, o, d, tmin,
+                                                       tmax, act)})
+        nbytes = n * HISTORY_LANE_BYTES + rows_read * TRI_ROW_BYTES
+        rows[name] = engine_row(
+            f"history {name} (revalidate)",
+            lambda: history._launch_kernel(*lanes),
+            lambda: history.revalidate_plain(*lanes), nbytes, n * MT_OPS,
+            extra, phase="S")
+        if mism or bad:
+            raise SystemExit(f"chip_smoke: S history {name}: {extra}")
+    log(f"S history: the revalidation resolved "
+        f"{rows['d1_closest']['revalidated']} of "
+        f"{rows['d1_closest']['active']} depth-1 closest lanes (the walk ran "
+        f"under their bound), and {rows['d1_sun']['skipped_the_walk']} of "
+        f"{rows['d1_sun']['active']} sun lanes skipped the walk [{smi}]")
+    run = route_run("history", sess, base_img, smi, "history_revalidate", 2)
+    del sess
+    torch.cuda.empty_cache()
+    return {"classes": rows, "run": run}, run["kernel_launches"]
+
+
+def s_proxy(base_img, smi):
+    """S, proxy seeding: a session rendering with DXRPT_PROXY_SEED=1; the
+    depth-2 closest class recorded: the proxy_closest kernel against its
+    plain version, the seeded walk against the unseeded one on the same
+    rays, the walks' times; then the route's frames."""
+    from dxrpathtracer_tpu_torch.accel import packet, proxy, traverse
+    with env_var("DXRPT_PROXY_SEED", "1"):
+        sess = engine_session("Sponza")
+        sess.reset_accumulation()
+        calls = []
+        with recording(proxy, "proxy_closest", calls):
+            sess.render_frame()
+        sync()
+        if len(calls) != 1:
+            raise SystemExit(f"chip_smoke: S proxy: {len(calls)} seeded "
+                             f"closest calls in a frame, want 1")
+        px = calls[0][0]
+        rays = proxy._rays(*(x.clone() for x in calls[0][1:6]))
+        o, d, tmin, tmax, act = rays
+        n = o.shape[0]
+        stats = {}
+        ref = proxy.proxy_closest_plain(px, *rays, stats=stats)
+        got = proxy._launch_closest(px, rays)
+        w32 = lambda *r: traverse.closest_hit(sess.bvh_ray, *r)  # noqa: E731
+        seeded = proxy.seeded_closest(w32, px, *rays)
+        walk = w32(*rays)
+        cmp_ = against_walk(seeded, walk)
+        bound = torch.where(got.tri_id >= 0,
+                            got.t * torch.tensor(proxy.SEED_SLACK,
+                                                 device=got.t.device), got.t)
+        extra = {"rays": n, "active": int(act.sum()), "k": px.k,
+                 "proxy_hits": int(got.hit.sum()),
+                 "mismatches_vs_plain": hit_bits_differ(got, ref),
+                 "max_abs_err": 0.0, "column_tests": stats["tests"], **cmp_,
+                 "walk_ms": walk_ms({
+                     "per_ray_W32": lambda: w32(*rays),
+                     "per_ray_W32_seeded_bound": lambda: w32(o, d, tmin,
+                                                             bound, act),
+                     "per_ray_W8": lambda: traverse.closest_hit(
+                         sess.bvh, *rays),
+                     "packet_W8": lambda: packet.packet_closest_hit(
+                         sess.bvh, *rays)})}
+        nbytes = n * CLOSEST_RAY_BYTES + px.k * 40
+        rows = {"d2_closest": engine_row(
+            "proxy d2_closest (proxy_closest)",
+            lambda: proxy._launch_closest(px, rays),
+            lambda: proxy.proxy_closest_plain(px, *rays), nbytes,
+            stats["tests"] * MT_OPS, extra, phase="S")}
+        # the seeded walk finds the proxy triangle itself under its bound,
+        # or nearer; where the walk's slab test culls a grazing hit the
+        # proxy's stands, so a lane is never farther than the unseeded walk
+        if extra["mismatches_vs_plain"] or cmp_["t_farther"]:
+            raise SystemExit(f"chip_smoke: S proxy: {extra}")
+        run = route_run("proxy_seed", sess, base_img, smi, "proxy_closest", 1)
+    del sess
+    torch.cuda.empty_cache()
+    return {"classes": rows, "run": run}, run["kernel_launches"]
+
+
+def s_raster(base_img, smi):
+    """S, the software raster: a session rendering with
+    DXRPT_RASTER_MIN_PIXELS=1; its bins (pairs, deepest tile, the host
+    binning's seconds) and the recorded camera rays: the raster kernel
+    against its plain version and against the packet walk on the same rays,
+    the walks' times; then the route's frames."""
+    import numpy as np
+
+    from dxrpathtracer_tpu_torch.accel import packet, traverse
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    from dxrpathtracer_tpu_torch.render import swraster
+    with env_var("DXRPT_RASTER_MIN_PIXELS", "1"):
+        sess = engine_session("Sponza")
+        sess.reset_accumulation()
+        calls = []
+        with recording(it, "raster_closest_hit", calls):
+            sess.render_frame()
+        sync()
+        bins = sess.raster_bins
+        if len(calls) != 1 or bins is None:
+            raise SystemExit(f"chip_smoke: S raster: {len(calls)} raster "
+                             f"calls in a frame, bins {bins}")
+        depth = (bins.tile_start[1:] - bins.tile_start[:-1]).cpu()
+        cam = sess.camera
+        t0 = time.perf_counter()
+        swraster.build_raster_bins(
+            sess.scene_host.positions.numpy(),
+            sess.scene_host.tri_idx.numpy(),
+            np.asarray(cam.view_projection(), np.float64),
+            float(cam.near_clip), sess.width, sess.height, bins.ty, bins.tx,
+            bins.tri_table)
+        host_s = time.perf_counter() - t0
+        rays = swraster._lanes(bins, *(x.clone() for x in calls[0][1:6]))
+        o, d, tmin, tmax, act = rays
+        n = o.shape[0]
+        stats = {}
+        ref = swraster.raster_closest_hit_plain(bins, *rays, stats=stats)
+        got = swraster._launch_kernel(bins, *rays)
+        walk = packet.packet_closest_hit(sess.bvh, *rays)
+        cmp_ = against_walk(got, walk)
+        rows_read = int(torch.unique(bins.tri_id).numel())
+        extra = {"rays": n, "active": int(act.sum()), "pairs": bins.pairs,
+                 "tiles": bins.n_tiles, "deepest_tile": int(depth.max()),
+                 "empty_tiles": int((depth == 0).sum()),
+                 "binning_host_s": host_s,
+                 "session_build_s": sess.raster_build_s,
+                 "hits": int(got.hit.sum()),
+                 "mismatches_vs_plain": hit_bits_differ(got, ref),
+                 "max_abs_err": 0.0, "triangle_tests": stats["tests"],
+                 **cmp_, "walk_ms": walk_ms({
+                     "packet_W8": lambda: packet.packet_closest_hit(
+                         sess.bvh, *rays),
+                     "per_ray_W8": lambda: traverse.closest_hit(sess.bvh,
+                                                                *rays)})}
+        nbytes = (n * CLOSEST_RAY_BYTES + bins.pairs * 4
+                  + (bins.n_tiles + 1) * 4 + rows_read * TRI_ROW_BYTES)
+        rows = {"d1_camera": engine_row(
+            "raster d1_camera (raster_closest_hit)",
+            lambda: swraster._launch_kernel(bins, *rays),
+            lambda: swraster.raster_closest_hit_plain(bins, *rays), nbytes,
+            stats["tests"] * MT_OPS, extra, phase="S")}
+        # never farther than the walk: a nearer hit is one the walk's slab
+        # test culls (a grazing ray), which the raster, testing every binned
+        # triangle, finds
+        if extra["mismatches_vs_plain"] or cmp_["t_farther"]:
+            raise SystemExit(f"chip_smoke: S raster: {extra}")
+        run = route_run("raster", sess, base_img, smi, "raster_closest_hit",
+                        1)
+    del sess
+    torch.cuda.empty_cache()
+    return {"classes": rows, "run": run}, run["kernel_launches"]
+
+
+def s_edge_cases(smi):
+    """S's edge cases, each kernel against its plain version on the card, 0
+    lanes that differ in any bit: the revalidation on the soup with
+    predictions that mix true hits, -1, stale triangles and hits beyond
+    t_max, a fifth of the lanes inactive, n not a multiple of 32
+    (traverse_cases.history_predictions); proxy_closest on proxy_edge_rays
+    at K = 8 and 1,365 (the soup) and 24 (BoxTest); the raster on
+    traverse_cases.raster_edge_scene at 64x32 (a triangle through the near
+    plane, empty tiles, a tile of more than 320 triangles, a repeated quad:
+    the lower id at equal t)."""
+    import numpy as np
+
+    from dxrpathtracer_tpu_torch.accel import history, proxy, traverse
+    from dxrpathtracer_tpu_torch.accel.bvh import build_bvh
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.convert import frame_from_numpy
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    from dxrpathtracer_tpu_torch.render import swraster
+    from dxrpathtracer_tpu_torch.render.camera import FirstPersonCamera
+    from dxrpathtracer_tpu_torch.scene.registry import load_scene
+    from dxrpathtracer_tpu_torch.tools import traverse_cases as tc
+
+    def indexed(v0, v1, v2):
+        t = v0.shape[0]
+        return (np.concatenate([v0, v1, v2]),
+                np.arange(3 * t, dtype=np.int32).reshape(3, t).T.copy())
+
+    def tensors(rays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(rays[f])).to(
+            DEVICE) for f in tc.RAY_FIELDS)
+
+    rows, bad = {}, []
+    # the revalidation
+    soup = tc.soup(0)
+    pos, tri = indexed(*soup)
+    bvh = build_bvh(*soup, width=8).to(DEVICE)
+    rays = {f: a[:2045] for f, a in tc.soup_rays(5).items()}
+    r = tensors(rays)
+    rec = traverse.closest_hit(bvh, *r)
+    _, occ = traverse.any_hit_rec(bvh, *r)
+    table = torch.from_numpy(history.build_tri_table(pos, tri)).to(DEVICE)
+    mixed, prim, sun = tc.history_predictions(
+        rays, rec.tri_id.cpu().numpy(), rec.t.cpu().numpy(),
+        occ.cpu().numpy(), table.shape[0])
+    r = tensors(mixed)
+    for name, pred in (("closest", prim), ("sun", sun)):
+        lanes = history._lanes(table, torch.from_numpy(pred).to(DEVICE), *r)
+        got = history._launch_kernel(*lanes)
+        ref = history.revalidate_plain(*lanes)
+        row = rows[f"history {name}"] = {
+            "rays": r[0].shape[0], "active": int(r[4].sum()),
+            "no_prediction": int((lanes[1] < 0).sum()),
+            "held": int(got[0].sum()),
+            "mismatches_vs_plain": int((got[0] != ref[0]).sum()) + sum(
+                bits_differ(g, f) for g, f in zip(got[1:], ref[1:]))}
+        if row["mismatches_vs_plain"] or not 0 < row["held"] < row["active"]:
+            bad.append(f"history {name}")
+    # proxy_closest
+    box, _ = load_scene(Scenes.BoxTest)
+    r = proxy._rays(*tensors(tc.proxy_edge_rays()))
+    for name, px in (("k8", proxy.build_dense_proxy(pos, tri, k=8)),
+                     ("k1365", proxy.build_dense_proxy(
+                         pos, tri, k=proxy.MAX_COLUMNS)),
+                     ("box_k24", proxy.build_dense_proxy(
+                         box.positions.numpy(), box.tri_idx.numpy()))):
+        px = px.to(DEVICE)
+        got = proxy._launch_closest(px, r)
+        ref = proxy.proxy_closest_plain(px, *r)
+        row = rows[f"proxy_closest {name}"] = {
+            "k": px.k, "rays": r[0].shape[0], "hits": int(got.hit.sum()),
+            "mismatches_vs_plain": hit_bits_differ(got, ref)}
+        if row["mismatches_vs_plain"] or not row["hits"]:
+            bad.append(f"proxy_closest {name}")
+    # the raster
+    pos, tri = indexed(*tc.raster_edge_scene())
+    w, h = 64, 32
+    cam = FirstPersonCamera(aspect=w / h)
+    frame = frame_from_numpy(cam.inv_view_projection(), cam.position,
+                             [0, 1, 0], [1, 1, 1], [1, 1, 1], 1.0, 0.0,
+                             0).to(DEVICE)
+    o, d, length, _ = it.raygen(AppSettings(sqrt_num_samples=2), frame, w, h,
+                                DEVICE)
+    dims = it._packet_tile_dims(h, w)
+    o, d, length = (it._tile_order(x, h, w, *dims) for x in (o, d, length))
+    bins = swraster.build_raster_bins(
+        pos, tri, np.asarray(cam.view_projection(), np.float64),
+        float(cam.near_clip), w, h, *dims,
+        history.build_tri_table(pos, tri)).to(DEVICE)
+    rays = swraster._lanes(bins, o, d, 0.0, length, None)
+    got = swraster._launch_kernel(bins, *rays)
+    ref = swraster.raster_closest_hit_plain(bins, *rays)
+    depth = (bins.tile_start[1:] - bins.tile_start[:-1]).cpu()
+    ids = got.tri_id.cpu()
+    row = rows["raster edge scene"] = {
+        "rays": w * h, "deepest_tile": int(depth.max()),
+        "empty_tiles": int((depth == 0).sum()),
+        "stack_hits": int(((ids >= 0) & (ids < 800)).sum()),
+        "repeated_quad_hits": int(((ids >= 800) & (ids < 804)).sum()),
+        "repeated_quad_upper_copy": int(((ids >= 802) & (ids < 804)).sum()),
+        "near_plane_triangle_hits": int((ids == 804).sum()),
+        "mismatches_vs_plain": hit_bits_differ(got, ref)}
+    if (row["mismatches_vs_plain"] or row["deepest_tile"] <= 320
+            or not row["empty_tiles"] or not row["stack_hits"]
+            or not row["repeated_quad_hits"]
+            or row["repeated_quad_upper_copy"]
+            or not row["near_plane_triangle_hits"]):
+        bad.append("raster edge scene")
+    for key, row in rows.items():
+        log(f"S edge {key}: " + ", ".join(f"{k}={v}" for k, v in row.items()))
+    if bad:
+        raise SystemExit(f"chip_smoke: S edge cases {bad}: "
+                         f"{[rows[k] for k in bad]}")
+    return rows
+
+
+def phase_seeded_routes(frame_sess, smi):
+    """S: the three exact alternates of an opaque closest hit that the JAX
+    package keeps off by default, each on its own 1080p stand-in session
+    (one sample per pixel, path length 3): temporal history
+    (DXRPT_HISTORY), proxy seeding (DXRPT_PROXY_SEED) and the software
+    raster (DXRPT_RASTER_MIN_PIXELS=1), against the default route's frames
+    on `frame_sess`; then their kernels' edge cases. Returns (results, the
+    routes' launches)."""
+    t0 = time.time()
+    base_row, base_img = engine_run("default route", frame_sess,
+                                    frame_sess.settings, {}, smi,
+                                    frames=S_FRAMES, phase="S")
+    out, runs = {"default": base_row}, [base_row["kernel_launches"]]
+    for name, fn in (("history", s_history), ("proxy_seed", s_proxy),
+                     ("raster", s_raster)):
+        out[name], launches = fn(base_img, smi)
+        runs.append(launches)
+    out["edge_cases"] = s_edge_cases(smi)
+    out["phase_s"] = time.time() - t0
+    log(f"phase S: {out['phase_s']:.1f} s")
+    return out, runs
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -3545,6 +4064,8 @@ def main():
     engines = phase_engine_classes(frame_sess, box_sess, smi)
     engine_ab, engine_launches = phase_engine_ab(frame_sess, box_sess, smi)
     del box_sess
+    torch.cuda.empty_cache()
+    seeded, seeded_launches = phase_seeded_routes(frame_sess, smi)
     alpha, (alpha_classes, _, alpha_trav, _, alpha_inst), alpha_launches = \
         phase_alpha(smi)
     torch.cuda.empty_cache()
@@ -3584,7 +4105,7 @@ def main():
     # imported frame, the animation, the viewer) and its ray classes' sums
     runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
             *r2_launches, fbx_launches, anim_launches, viewer_launches,
-            *engine_launches, *bake_ab_launches]
+            *engine_launches, *bake_ab_launches, *seeded_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -3611,15 +4132,23 @@ def main():
          "ms": shade["ms"], "plain_ms": shade["plain_ms"],
          "bound_ms": shade["bound_ms"], "bound_by": shade["bound_by"],
          "library_ms": shade["library_ms"]})
-    # each engine kernel: its launches on the main paths (those runs and
-    # E2's configurations), its E1 class on the 1080p stand-in (the cut's
-    # on 1080p BoxTest, where its probe gates it on)
+    # each engine kernel: its launches on the main paths (those runs, E2's
+    # configurations and S's routes), its E1 class on the 1080p stand-in
+    # (the cut's on 1080p BoxTest, where its probe gates it on), or for the
+    # routes' kernels their S class
     e1_class = {"packet_closest": "d1_closest", "packet_any": "d1_sun",
                 "sun_any_hit": "d2_sun", "proxy_blocked": "proxy_terminal",
                 "cut_clear": "cut_box_d1_closest"}
+    s_class = {"history_revalidate": ("history", "d1_closest"),
+               "proxy_closest": ("proxy_seed", "d2_closest"),
+               "raster_closest_hit": ("raster", "d1_camera")}
     for name, (source, replaces) in ENGINE_KERNELS.items():
         launches = sum(r[name] for r in runs)
-        row = engines["classes"][e1_class[name]]
+        if name in s_class:
+            route, cls = s_class[name]
+            row = seeded[route]["classes"][cls]
+        else:
+            row = engines["classes"][e1_class[name]]
         if launches == 0:
             raise SystemExit(f"chip_smoke: {name}: no launch on the main "
                              f"paths")
@@ -3656,7 +4185,8 @@ def main():
                    "interactive": viewer, "engine_classes": engines,
                    "engine_bake_classes": engine_bake, "engine_ab": engine_ab,
                    "engine_bake_ab": bake_ab,
-                   "engine_same_frame": engine_same, **kernels}, f,
+                   "engine_same_frame": engine_same,
+                   "seeded_routes": seeded, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ entry; at a leaf every live ray tests the 12 triangles. Closest hits are the
 per-ray walk's up to the triangle of an equal-t tie; any-hit visibility is
 equal. Alpha-tested rays are not the packet's: they take the per-ray walk.
 
-`packet_closest_hit` and `packet_any_hit` launch csrc/packet.cu (one warp
-per packet, four rays per lane) for CUDA tensors and run
+`packet_closest_hit`, `packet_any_hit` and `packet_any_hit_rec` (which also
+returns the occluder) launch csrc/packet.cu (one warp per packet, four rays
+per lane) for CUDA tensors and run
 `packet_traverse_plain` (the JAX package's step, over the packets still
 walking) for CPU tensors; they route on the device alone.
 """
@@ -291,8 +292,18 @@ def packet_closest_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max,
 def packet_any_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None):
     """Any-hit visibility over coherent packets: (N,) f32, 1 = unoccluded,
     as traverse.any_hit."""
+    return packet_any_hit_rec(bvh, ray_o, ray_d, t_min, t_max, active)[0]
+
+
+def packet_any_hit_rec(bvh: FlatBVH, ray_o, ray_d, t_min, t_max,
+                       active=None):
+    """packet_any_hit that also returns the occluder: (visibility, the
+    triangle that ended the ray's walk, -1 where the lane is unoccluded or
+    inactive), for the history-seeded sun rays (accel/history.py)."""
     n, dev = ray_o.shape[0], ray_o.device
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dev)
     rec = _packet(bvh, ray_o, ray_d, t_min, t_max, active, True)
-    return torch.where(active & rec.hit, 0.0, 1.0)
+    occluded = active & rec.hit
+    return (torch.where(occluded, 0.0, 1.0),
+            torch.where(occluded, rec.tri_id, -1))

@@ -14,11 +14,17 @@ lanes out of a per-ray walk before it starts, and neither changes a result:
     per scene where a host probe of surface-hemisphere rays finds at least
     CUT_MIN_CLEAR of them clear (`probe_clear_fraction`).
 
-Both tests are one kernel source, csrc/screen.cu (`_launch`): one thread
-per lane, the columns in shared memory. `proxy_blocked` and `cut_clear`
-launch it for CUDA tensors and run `proxy_blocked_plain` / `cut_clear_plain`
-(the JAX package's expressions in the same order, over lane chunks) for CPU
-tensors; they route on the device alone.
+The proxy also seeds closest hits (`seeded_closest`, behind
+DXRPT_PROXY_SEED as in the JAX package): `proxy_closest` finds each lane's
+nearest proxy hit, whose t bounds the per-ray walk; where the walk finds
+nothing under the bound, the proxy hit stands.
+
+All three tests are one kernel source, csrc/screen.cu (`_launch`): one
+thread per lane, the columns in shared memory. `proxy_blocked`,
+`proxy_closest` and `cut_clear` launch it for CUDA tensors and run
+`proxy_blocked_plain` / `proxy_closest_plain` / `cut_clear_plain` (the JAX
+package's expressions in the same order, over lane chunks) for CPU tensors;
+they route on the device alone.
 
 Three faults of the JAX module are not carried over: `build_aabb_cut` keeps
 at least one box for any chunk count (JAX's leaves zero boxes for c <= 0, and
@@ -37,7 +43,8 @@ import torch
 
 from ..buildlib import build_shared_library, nvcc
 from .bvh import morton_codes_30
-from .traverse import NVCC_FLAGS, moller_trumbore, safe_inv, slab_interval
+from .traverse import (NVCC_FLAGS, HitRecord, moller_trumbore, safe_inv,
+                       slab_interval)
 
 KERNEL_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "screen.cu"
 PROXY_K = 128         # proxy triangles (the JAX session's default)
@@ -49,9 +56,13 @@ MAX_COLUMNS = 12 * 1024 // 9
 
 # Launches of each screen kernel since the process started (or since a
 # caller last reset them). Only `_launch` adds to them.
-KERNEL_LAUNCHES = {"proxy_blocked": 0, "cut_clear": 0}
+KERNEL_LAUNCHES = {"proxy_blocked": 0, "proxy_closest": 0, "cut_clear": 0}
 
 _EPS = 1e-12
+_BIG = 3e38
+# The seeded walk's bound over the proxy hit: JAX's pt * (1.0 + 1e-5), the
+# weakly typed constant rounded to f32 before the product.
+SEED_SLACK = np.float32(1.0 + 1e-5)
 _CHUNK = 1 << 15  # lanes per plain broadcast: (chunk, K) temporaries stay small
 
 
@@ -220,6 +231,9 @@ def kernel_library():
         for fn in (lib.dxrpt_proxy_blocked, lib.dxrpt_cut_clear):
             fn.restype = ctypes.c_int
             fn.argtypes = [p, i32, p, p, p, p, p, i64, p, p]
+        lib.dxrpt_proxy_closest.restype = ctypes.c_int
+        lib.dxrpt_proxy_closest.argtypes = [p, p, i32, p, p, p, p, p, i64,
+                                            p, p, p, p, p]
         _kernel = lib
     return _kernel
 
@@ -274,6 +288,40 @@ def _launch(name: str, columns, rays):
     return out
 
 
+def _launch_closest(proxy: DenseProxy, rays) -> HitRecord:
+    """One launch of the proxy's closest-hit test over all lanes on the
+    current stream; does not synchronise."""
+    ray_o = rays[0]
+    n, dev = ray_o.shape[0], ray_o.device
+    cols, ids = proxy.tris, proxy.tri_id
+    if (cols.dtype != torch.float32 or cols.dim() != 2 or cols.shape[0] != 9
+            or cols.device != dev or not cols.is_contiguous()
+            or ids.dtype != torch.int32 or tuple(ids.shape) != (cols.shape[1],)
+            or ids.device != dev or not ids.is_contiguous()):
+        raise ValueError(f"proxy_closest: want contiguous f32 (9, k) columns "
+                         f"and i32 (k,) ids on {dev}")
+    if not 1 <= proxy.k <= MAX_COLUMNS:
+        raise ValueError(f"proxy_closest: {proxy.k} columns, the kernel "
+                         f"takes 1..{MAX_COLUMNS}")
+    out = HitRecord(t=torch.empty(n, dtype=torch.float32, device=dev),
+                    tri_id=torch.empty(n, dtype=torch.int32, device=dev),
+                    u=torch.empty(n, dtype=torch.float32, device=dev),
+                    v=torch.empty(n, dtype=torch.float32, device=dev))
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = kernel_library().dxrpt_proxy_closest(
+            cols.data_ptr(), ids.data_ptr(), proxy.k,
+            *(x.data_ptr() for x in rays), n, out.t.data_ptr(),
+            out.tri_id.data_ptr(), out.u.data_ptr(), out.v.data_ptr(), stream)
+        KERNEL_LAUNCHES["proxy_closest"] += 1
+    if rc != 0:
+        raise RuntimeError(f"proxy_closest kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The plain versions
 # ---------------------------------------------------------------------------
@@ -306,6 +354,47 @@ def proxy_blocked_plain(proxy: DenseProxy, ray_o, ray_d, t_min, t_max,
         _count_tests(stats, ok, active[sl])
         out.append(active[sl] & ok.any(dim=1))
     return torch.cat(out) if out else active.clone()
+
+
+def proxy_closest_plain(proxy: DenseProxy, ray_o, ray_d, t_min, t_max,
+                        active, stats: dict | None = None) -> HitRecord:
+    """JAX `proxy_closest`'s (N, K) broadcast Moller-Trumbore, chunked over
+    lanes: each active lane's least t among the proxy triangles hit in
+    [t_min, t_max), the lowest slot (the largest triangle) on equal t; a
+    lane with no hit keeps t = t_max, tri_id = -1, u = v = 0. With
+    `stats`, adds the triangle tests the kernel makes ("tests": K per
+    active lane) to it."""
+    cols = [c[None, :] for c in proxy.tris]  # (1, K) each
+    k = proxy.k
+    slot = torch.arange(k, dtype=torch.int32, device=ray_o.device)[None, :]
+    parts = []
+    for i in range(0, ray_o.shape[0], _CHUNK):
+        sl = slice(i, i + _CHUNK)
+        det_ok, u, v, t = moller_trumbore(
+            [ray_o[sl, c:c + 1] for c in range(3)],
+            [ray_d[sl, c:c + 1] for c in range(3)],
+            cols[0:3], cols[3:6], cols[6:9])
+        ok = (det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (t >= t_min[sl, None]) & (t < t_max[sl, None])
+              & active[sl, None])
+        key = torch.where(ok, t, _BIG)
+        best = key.amin(dim=1)
+        min_slot = torch.where(key <= best[:, None], slot, k).amin(dim=1)
+        first = slot == min_slot[:, None]
+        win = best < _BIG
+        tri = torch.where(first, proxy.tri_id[None, :], 0).sum(dim=1)
+        pu = torch.where(first, u, 0.0).sum(dim=1)
+        pv = torch.where(first, v, 0.0).sum(dim=1)
+        parts.append((torch.where(win, best, t_max[sl]),
+                      torch.where(win, tri, -1).to(torch.int32),
+                      torch.where(win, pu, 0.0), torch.where(win, pv, 0.0)))
+    if stats is not None:
+        stats["tests"] = stats.get("tests", 0) + int(active.sum()) * k
+    if not parts:
+        return HitRecord(t_max.clone(), torch.full_like(t_max, -1,
+                                                        dtype=torch.int32),
+                         torch.zeros_like(t_max), torch.zeros_like(t_max))
+    return HitRecord(*(torch.cat([p[j] for p in parts]) for j in range(4)))
 
 
 def cut_clear_plain(cut: AABBCut, ray_o, ray_d, t_min, t_max, active,
@@ -350,6 +439,41 @@ def proxy_blocked(proxy: DenseProxy, ray_o, ray_d, t_min, t_max,
     lane to the walk."""
     return _route("proxy_blocked", proxy.tris, proxy_blocked_plain, proxy,
                   ray_o, ray_d, t_min, t_max, active)
+
+
+def proxy_closest(proxy: DenseProxy, ray_o, ray_d, t_min, t_max,
+                  active=None) -> HitRecord:
+    """Each active lane's nearest proxy hit in [t_min, t_max) (the lowest
+    slot, the largest triangle, on equal t): a HitRecord with t = t_max and
+    tri_id = -1 where no proxy triangle is hit."""
+    rays = _rays(ray_o, ray_d, t_min, t_max, active)
+    dev = rays[0].device
+    if dev.type == "cuda":
+        return _launch_closest(proxy, rays)
+    if dev.type == "cpu":
+        return proxy_closest_plain(proxy, *rays)
+    raise ValueError(f"no proxy_closest for device {dev}")
+
+
+def seeded_closest(closest_fn, proxy: DenseProxy, ray_o, ray_d, t_min,
+                   t_max, active) -> HitRecord:
+    """Proxy-seeded closest hit: closest_fn(o, d, t_min, t_max, active), a
+    per-ray walk, runs with t_max = the proxy hit's t * SEED_SLACK where a
+    proxy triangle is hit. The slack lets the walk find the proxy triangle
+    itself (it is in the table), so found hits are the unseeded walk's;
+    only where the walk still finds nothing (the two evaluations of one
+    sliver disagreeing by more than 1e-5 relative) does the proxy hit
+    stand."""
+    rays = _rays(ray_o, ray_d, t_min, t_max, active)
+    seed = proxy_closest(proxy, *rays)
+    slack = torch.tensor(SEED_SLACK, device=seed.t.device)
+    bound = torch.where(seed.tri_id >= 0, seed.t * slack, seed.t)
+    rec = closest_fn(rays[0], rays[1], rays[2], bound, rays[4])
+    hit = rec.tri_id >= 0
+    return HitRecord(t=torch.where(hit, rec.t, seed.t),
+                     tri_id=torch.where(hit, rec.tri_id, seed.tri_id),
+                     u=torch.where(hit, rec.u, seed.u),
+                     v=torch.where(hit, rec.v, seed.v))
 
 
 def cut_clear(cut: AABBCut, ray_o, ray_d, t_min, t_max, active=None):

@@ -26,8 +26,9 @@ Two implementations of that walk:
     lockstep over all lanes, expression for expression `_kernel` for W8 and
     `_traverse`'s XLA body for W32.
 
-`closest_hit` and `any_hit` launch the kernel for CUDA tensors and run the
-plain version for CPU tensors; they route on the device alone. The kernel
+`closest_hit`, `any_hit` and `any_hit_rec` (which also returns the
+occluder) launch the kernel for CUDA tensors and run the plain version for
+CPU tensors; they route on the device alone. The kernel
 has eight instantiations: W8 or W32, closest or any hit, opaque or
 alpha-tested.
 """
@@ -548,5 +549,13 @@ def any_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None,
             alpha: AlphaTest | None = None):
     """Any-hit (shadow) traversal; returns visibility (N,) f32 in {0, 1},
     1 when unoccluded (ShadowPayload, RayTrace.hlsl:73-76,533-541)."""
+    return any_hit_rec(bvh, ray_o, ray_d, t_min, t_max, active, alpha)[0]
+
+
+def any_hit_rec(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None,
+                alpha: AlphaTest | None = None):
+    """any_hit that also returns the occluder: (visibility, the triangle
+    that ended the walk, -1 where the lane is unoccluded or inactive), for
+    the history-seeded sun rays (accel/history.py)."""
     rec = _traverse(bvh, ray_o, ray_d, t_min, t_max, active, True, alpha)
-    return torch.where(rec.hit, 0.0, 1.0)
+    return torch.where(rec.hit, 0.0, 1.0), rec.tri_id

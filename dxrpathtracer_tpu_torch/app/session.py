@@ -17,6 +17,16 @@ surface-hemisphere rays), and the sun-space grid is built on the host when
 the first path-traced sample for a sun direction needs it (raster frames
 never do) and again whenever the sun or the engine fields change.
 
+Two more, off by default, read the JAX package's switches where it reads
+them: DXRPT_HISTORY at construction builds the triangle table and keeps a
+temporal history (two (H*W,) int32 tensors of triangle ids in the frame's
+lane order, -1 at first, reset with the accumulation); the software raster's
+bins are built on the host for the camera where enable_sw_raster and
+enable_packet_traversal are on, a 128-pixel tile divides the frame and the
+frame has at least RASTER_MIN_PIXELS (DXRPT_RASTER_MIN_PIXELS) pixels, and
+again whenever the camera or the frame size changes. The port renders the
+frame in one pass, so the bins cover the frame (the JAX session's row slab).
+
 The frame state is {accum, sample_idx}: `checkpoint_state` reads it back to
 the host and `restore_state` resumes from it (a progressive render resumes
 where it stopped). `display_thumbnail` is the interactive viewer's small
@@ -24,12 +34,14 @@ tone-mapped preview, made on the session's device. `rebuild_step` is the hot
 reload hook (app/hotreload.py).
 """
 
+import os
 import time
 
 import numpy as np
 import torch
 
 from ..accel.bvh import build_bvh_for_scene
+from ..accel.history import build_tri_table
 from ..accel.proxy import (CUT_C, CUT_MIN_CLEAR, PROXY_K, build_aabb_cut,
                            build_dense_proxy, probe_clear_fraction)
 from ..accel.sunspace import build_sun_grid_for_scene
@@ -38,13 +50,15 @@ from ..core.constants import FP16Scale
 from ..core.math3 import div
 from ..render.camera import FirstPersonCamera
 from ..render.clusters import build_cluster_masks, froxel_bounding_spheres
-from ..render.integrator import FrameConstants, _make_alpha_test
+from ..render.integrator import (FrameConstants, _make_alpha_test,
+                                 _packet_tile_dims)
 from ..render.postfx import post_process, tone_map_filmic_alu
 from ..render.raster import forward_render
 from ..render.shadows import (convert_depth_maps, filter_moment_maps,
                               prepare_cascades, prepare_spot_shadows,
                               render_cascade_depth_maps,
                               render_spot_depth_maps)
+from ..render.swraster import build_raster_bins
 from ..scene.registry import load_scene
 from ..sky.skycache import SkyCache
 from .profiler import Profiler
@@ -55,10 +69,11 @@ class RenderSession:
 
     Rays route by the settings' engine fields as in the JAX package
     (render/integrator.py): packets, the sun-space grid, the dense proxy and
-    the AABB cut in front of the per-ray walk, each the CUDA kernel on a GPU
-    and its plain torch version on the CPU; enable_sw_raster and
-    enable_mxu_traversal select engines the port does not have and are not
-    read. The frame renders in one pass, with no row slabs.
+    the AABB cut in front of the per-ray walk, and the software raster
+    (enable_sw_raster, gated by RASTER_MIN_PIXELS), each the CUDA kernel on
+    a GPU and its plain torch version on the CPU; enable_mxu_traversal
+    selects an engine the port does not have and is not read. The frame
+    renders in one pass, with no row slabs.
 
     It runs on the card unless the caller passes device="cpu"; with no card
     it raises rather than carry on on the CPU. `scene` (CPU tensors, e.g.
@@ -108,6 +123,13 @@ class RenderSession:
                 self.proxy = self.proxy.to(self.device)
             if self.cut is not None:
                 self.cut = self.cut.to(self.device)
+            # the temporal history's triangle table (accel/history.py),
+            # under the JAX package's switch
+            self.tri_table = None
+            if os.environ.get("DXRPT_HISTORY"):
+                self.tri_table = torch.from_numpy(build_tri_table(
+                    scene.positions.numpy(), scene.tri_idx.numpy())
+                ).to(self.device)
         # The scene on the host (CPU tensors; np.asarray views them) that
         # the lightmap atlas builders read, as the JAX package's scene_host.
         self.scene_host = scene
@@ -127,6 +149,10 @@ class RenderSession:
         self._sun_grid_key = None
         self._geometry_moved = False
         self.sun_grid_build_s = None  # host seconds of the last grid build
+        self.raster_bins = None
+        self._raster_key = None
+        self._raster_tri_table = None
+        self.raster_build_s = None    # host seconds of the last binning
 
         self.sample_idx = 0
         self._last_restart_key = None
@@ -192,7 +218,66 @@ class RenderSession:
     def reset_accumulation(self):
         self._accum = torch.zeros((self.height, self.width, 3),
                                   dtype=torch.float32, device=self.device)
+        # the temporal history restarts with it (-1: no prediction; a stale
+        # id would still be exact, only slower)
+        self._history = None
+        if self.tri_table is not None:
+            n = self.height * self.width
+            self._history = {
+                k: torch.full((n,), -1, dtype=torch.int32, device=self.device)
+                for k in ("prim_tri", "sun_tri")}
         self.sample_idx = 0
+
+    @property
+    def history(self):
+        """The temporal history {"prim_tri", "sun_tri": (H*W,) int32 in the
+        frame's lane order}, or None without DXRPT_HISTORY."""
+        return self._history
+
+    # The software raster is off by default, as in the JAX package (where it
+    # was measured a loss on the TPU); DXRPT_RASTER_MIN_PIXELS lowers the
+    # gate.
+    RASTER_MIN_PIXELS = 1 << 62
+
+    def update_raster(self):
+        """The software raster's bins for the current camera and frame, or
+        None where they are not wanted (enable_sw_raster,
+        enable_packet_traversal, a 128-pixel tile dividing the frame, at
+        least RASTER_MIN_PIXELS pixels) or the geometry has moved. Built on
+        the host under the BuildRasterBins scope when the camera or the
+        frame size changed since the last build; `raster_build_s` keeps
+        its seconds."""
+        s = self.settings
+        min_px = int(os.environ.get("DXRPT_RASTER_MIN_PIXELS",
+                                    self.RASTER_MIN_PIXELS))
+        px = self.width * self.height
+        dims = _packet_tile_dims(self.height, self.width)
+        want = (s.enable_sw_raster and s.enable_packet_traversal
+                and px >= min_px and dims is not None
+                and not self._geometry_moved)
+        key = ((self.camera.state_tuple(), self.width, self.height)
+               if want else None)
+        if key != self._raster_key:
+            self._raster_key = key
+            self.raster_bins = None
+            if want:
+                t0 = time.perf_counter()
+                with self.profiler.cpu_scope("BuildRasterBins"):
+                    pos = self.scene_host.positions.numpy()
+                    tri = self.scene_host.tri_idx.numpy()
+                    if self._raster_tri_table is None:
+                        self._raster_tri_table = (
+                            self.tri_table if self.tri_table is not None
+                            else torch.from_numpy(build_tri_table(pos, tri))
+                            .to(self.device))
+                    self.raster_bins = build_raster_bins(
+                        pos, tri, np.asarray(self.camera.view_projection(),
+                                             np.float64),
+                        float(self.camera.near_clip), self.width,
+                        self.height, *dims, self._raster_tri_table
+                    ).to(self.device)
+                self.raster_build_s = time.perf_counter() - t0
+        return self.raster_bins
 
     def update_sun_grid(self):
         """The sun-space grid for the current settings, or None where they
@@ -224,11 +309,13 @@ class RenderSession:
         traversal class on `bvh`, a W8 table of that geometry built on the
         device (the `animate` command's moving geometry, as the JAX package
         routes it); resets the accumulation. The sun-space grid, the dense
-        proxy and the AABB cut describe the geometry as it was, so they are
-        dropped (packets walk `bvh`)."""
+        proxy, the AABB cut, the history's triangle table (and so the
+        history) and the raster bins describe the geometry as it was, so
+        they are dropped (packets walk `bvh`)."""
         self.scene, self.bvh, self.bvh_ray = scene, bvh, bvh
         self.proxy = self.cut = self.sun_grid = None
-        self._sun_grid_key = None
+        self.tri_table = self._raster_tri_table = self.raster_bins = None
+        self._sun_grid_key = self._raster_key = None
         self._geometry_moved = True
         self.reset_accumulation()
 
@@ -262,10 +349,19 @@ class RenderSession:
 
     def _step(self):
         frame = self.frame_constants(self.sample_idx)
-        self._accum = self._render_sample(
+        history = None
+        if self._history is not None:
+            history = {**self._history, "tri_table": self.tri_table}
+        out = self._render_sample(
             self.scene, self.bvh, self.bvh_ray, self.sky_cube, self.settings,
             frame, self.width, self.height, self._accum,
-            sun_grid=self.update_sun_grid(), proxy=self.proxy, cut=self.cut)
+            sun_grid=self.update_sun_grid(), proxy=self.proxy, cut=self.cut,
+            history=history, raster=self.update_raster())
+        if history is None:
+            self._accum = out
+        else:
+            self._accum, hist = out
+            self._history = {k: hist[k] for k in ("prim_tri", "sun_tri")}
         self.sample_idx += 1
 
     def render_frame(self, force: bool = False) -> bool:

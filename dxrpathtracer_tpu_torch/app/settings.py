@@ -14,9 +14,11 @@ The engine-select fields choose among exact alternates of the per-ray walk
 (render/integrator.py routes by them as the JAX package does):
 enable_packet_traversal and packet_shadows_all_depths (packets),
 enable_sunspace_shadows (the sun-space grid), enable_dense_proxy and
-enable_clear_cut (the broadcast screens). enable_sw_raster and
-enable_mxu_traversal select engines the port does not have; they stay so
-that settings compare equal across packages.
+enable_clear_cut (the broadcast screens), and enable_sw_raster (the software
+raster of camera rays, which the session also gates by frame size, off by
+default as in the JAX package). enable_mxu_traversal selects an engine the
+port does not have; it stays so that settings compare equal across
+packages.
 """
 
 import dataclasses

@@ -3,8 +3,9 @@
 The parity tests build one scene, its BVH tables, the sky cube and the frame
 constants with dxrpathtracer_tpu, read them back as numpy arrays, and feed the
 very same values to both packages through these functions. The learned
-denoiser's weights are the JAX package's data file, read with np.load. This
-module imports no JAX: callers pass plain numpy arrays and Python numbers.
+denoiser's weights are the port's copy of the JAX package's data file, read
+with np.load. This module imports no JAX: callers pass plain numpy arrays and
+Python numbers.
 """
 
 from pathlib import Path
@@ -15,7 +16,8 @@ import torch
 from .accel.bvh import FlatBVH
 from .accel.proxy import AABBCut, DenseProxy
 from .accel.sunspace import SunGrid
-from .render.integrator import FrameConstants
+from .render.integrator import (FrameConstants, _packet_tile_dims,
+                                _tile_order, _untile_order)
 from .scene.types import LIGHT_ARRAYS, SCENE_ARRAYS, Scene, SpotLights
 
 
@@ -115,15 +117,48 @@ def frame_from_numpy(inv_view_projection, camera_pos_ws, sun_direction_ws,
         curr_sample_idx=int(curr_sample_idx))
 
 
-# The learned denoiser's trained weights, shipped with the JAX package.
-DENOISER_WEIGHTS = (Path(__file__).resolve().parent.parent / "dxrpathtracer_tpu"
-                    / "data" / "denoiser_weights.npz")
+def history_from_reference(hist_slabs, width: int, height: int,
+                           packet_tiles: bool = True) -> dict:
+    """The JAX session's temporal history (`_hist_slabs`: one {"prim_tri",
+    "sun_tri"} dict of (slab_h * width,) ids per row slab, each in its
+    slab's packet-tile order) as the port's session keeps it: (H*W,) int32
+    CPU tensors in the whole frame's lane order. `packet_tiles` says
+    whether enable_packet_traversal is on (it tiles both packages' lanes
+    where a 128-pixel tile divides the slab, or the frame)."""
+    slab_h = height // len(hist_slabs)
+    if slab_h * len(hist_slabs) != height:
+        raise ValueError(f"{len(hist_slabs)} slabs do not divide {height} "
+                         f"rows")
+    slab_dims = (_packet_tile_dims(slab_h, width)
+                 if packet_tiles and slab_h * width % 128 == 0 else None)
+    dims = _packet_tile_dims(height, width) if packet_tiles else None
+    out = {}
+    for k in ("prim_tri", "sun_tri"):
+        rows = []
+        for slab in hist_slabs:
+            x = torch.from_numpy(np.array(slab[k], np.int32).reshape(-1))
+            if x.shape[0] != slab_h * width:
+                raise ValueError(f"{k}: a slab of {x.shape[0]} lanes, want "
+                                 f"{slab_h * width}")
+            if slab_dims is not None:
+                x = _untile_order(x, slab_h, width, *slab_dims)
+            rows.append(x)
+        x = torch.cat(rows)
+        out[k] = (x if dims is None
+                  else _tile_order(x, height, width, *dims)).contiguous()
+    return out
 
 
-def load_denoiser_weights() -> list[tuple[np.ndarray, np.ndarray]]:
-    """[(w HWIO, b), ...] from the JAX package's weight file (num_layers,
-    w0, b0, ...)."""
-    with np.load(DENOISER_WEIGHTS) as z:
+# The learned denoiser's trained weights: the port's own copy of the JAX
+# package's file, byte for byte.
+DENOISER_WEIGHTS = (Path(__file__).resolve().parent / "data"
+                    / "denoiser_weights.npz")
+
+
+def load_denoiser_weights(path=None) -> list[tuple[np.ndarray, np.ndarray]]:
+    """[(w HWIO, b), ...] from a weight file (num_layers, w0, b0, ...):
+    `path`, by default the port's DENOISER_WEIGHTS."""
+    with np.load(DENOISER_WEIGHTS if path is None else path) as z:
         return [(z[f"w{i}"], z[f"b{i}"]) for i in range(int(z["num_layers"]))]
 
 

@@ -1,6 +1,7 @@
 // The two broadcast screens of the per-ray shadow and bounce walks, for
 // sm_90a: the dense-proxy test (proxy_blocked) and the AABB-cut test
-// (cut_clear).
+// (cut_clear); and the proxy's nearest hit (proxy_closest), which seeds the
+// per-ray closest-hit walk's t_max.
 //
 // What they replace. dxrpathtracer_tpu/accel/proxy.py::proxy_blocked (:154)
 // and ::cut_clear (:346), which XLA runs on the TPU as one fused (N, K)
@@ -37,6 +38,13 @@
 //    (__any_sync). Inactive lanes never enter it. kPhase1 = 16 measured
 //    faster than 32 on the H100 (PERF.md).
 //
+//  - The proxy's nearest hit (dxrpathtracer_tpu/accel/proxy.py::
+//    proxy_closest, :112): a closest hit needs every column, so there is no
+//    early exit and no divergence to share out: one thread per lane walks
+//    all K columns from shared memory, keeping the least t and the lowest
+//    slot on equal t (a strict < over ascending slots), as JAX's min and
+//    lowest-slot select give. Its work is K * 54 operations a lane.
+//
 // Exactness. Build with --fmad=false and without fast-math: every product is
 // rounded on its own and the division is IEEE, as in the plain torch version
 // (accel/proxy.py) and the JAX package's expressions, in the same order.
@@ -52,6 +60,7 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr float kEps = 1e-12f;
+constexpr float kBig = 3e38f;  // the plain version's key of a lane's miss
 constexpr unsigned kFull = 0xFFFFFFFFu;
 // proxy triangles a lane tests on its own before its warp shares out the
 // rest (phase 1)
@@ -73,10 +82,11 @@ struct Segment {
     float ox, oy, oz, dx, dy, dz, tmin, tmax;
 };
 
-// Whether column j of `cols` (9 rows of k) blocks the segment:
-// Moller-Trumbore as the plain version computes it.
-__device__ __forceinline__ bool proxy_hit(const float* cols, int k, int j,
-                                          const Segment& r) {
+// Whether column j of `cols` (9 rows of k) is hit in the segment, with the
+// hit's t, u and v: Moller-Trumbore as the plain version computes it.
+__device__ __forceinline__ bool proxy_test(const float* cols, int k, int j,
+                                           const Segment& r, float& t_out,
+                                           float& u_out, float& v_out) {
     const float v0x = cols[j], v0y = cols[k + j], v0z = cols[2 * k + j];
     const float e1x = cols[3 * k + j], e1y = cols[4 * k + j];
     const float e1z = cols[5 * k + j];
@@ -97,8 +107,18 @@ __device__ __forceinline__ bool proxy_hit(const float* cols, int k, int j,
     const float qz = sx * e1y - sy * e1x;
     const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
     const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+    t_out = t;
+    u_out = u;
+    v_out = v;
     return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
            && t >= r.tmin && t < r.tmax;
+}
+
+// Whether column j of `cols` blocks the segment.
+__device__ __forceinline__ bool proxy_hit(const float* cols, int k, int j,
+                                          const Segment& r) {
+    float t, u, v;
+    return proxy_test(cols, k, j, r, t, u, v);
 }
 
 // tris: (9, k) f32 columns v0x v0y v0z e1x e1y e1z e2x e2y e2z.
@@ -148,6 +168,49 @@ proxy_kernel(const float* __restrict__ tris, int k,
         if (lane == src) blocked = hit;
     }
     if (i < n) out[i] = blocked ? 1 : 0;
+}
+
+// tris: (9, k) f32 columns as proxy_kernel's; ids: their (k,) triangle ids.
+__global__ void __launch_bounds__(kBlock)
+proxy_closest_kernel(const float* __restrict__ tris,
+                     const int32_t* __restrict__ ids, int k,
+                     const float* __restrict__ ray_o,
+                     const float* __restrict__ ray_d,
+                     const float* __restrict__ t_min,
+                     const float* __restrict__ t_max,
+                     const uint8_t* __restrict__ active, int64_t n,
+                     float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                     float* __restrict__ out_u, float* __restrict__ out_v) {
+    extern __shared__ float cols[];
+    for (int j = threadIdx.x; j < 9 * k; j += blockDim.x) cols[j] = tris[j];
+    __syncthreads();
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+    if (i >= n) return;
+    const float tmax = t_max[i];
+    float best = kBig, bu = 0.0f, bv = 0.0f;
+    int slot = -1;
+    if (active[i]) {
+        const Segment r{ray_o[3 * i], ray_o[3 * i + 1], ray_o[3 * i + 2],
+                        ray_d[3 * i], ray_d[3 * i + 1], ray_d[3 * i + 2],
+                        t_min[i], tmax};
+        for (int j = 0; j < k; ++j) {
+            float t, u, v;
+            // strict < over ascending slots: the lowest slot wins a tie
+            if (proxy_test(cols, k, j, r, t, u, v) && t < best) {
+                best = t;
+                bu = u;
+                bv = v;
+                slot = j;
+            }
+        }
+    }
+    const bool win = slot >= 0;
+    out_t[i] = win ? best : tmax;
+    out_tri[i] = win ? ids[slot] : -1;
+    // + 0.0f: -0 becomes +0, as the reference's masked sum gives
+    out_u[i] = win ? bu + 0.0f : 0.0f;
+    out_v[i] = win ? bv + 0.0f : 0.0f;
 }
 
 // boxes: (6, c) f32 columns lox loy loz hix hiy hiz.
@@ -219,6 +282,27 @@ extern "C" int dxrpt_proxy_blocked(const float* tris, int32_t k,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Each active lane's nearest hit among the k proxy triangles (tris: (9, k)
+// f32, ids: (k,) i32) in [t_min, t_max), the lowest slot on equal t: t, the
+// triangle's id, u and v; t_max, -1, 0, 0 where none is hit.
+extern "C" int dxrpt_proxy_closest(const float* tris, const int32_t* ids,
+                                   int32_t k, const float* ray_o,
+                                   const float* ray_d, const float* t_min,
+                                   const float* t_max, const uint8_t* active,
+                                   int64_t n, float* out_t, int32_t* out_tri,
+                                   float* out_u, float* out_v, void* stream) {
+    if (n <= 0) return 0;
+    if (k < 1 || 9 * k > kMaxColumnFloats)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t blocks = (n + kBlock - 1) / kBlock;
+    proxy_closest_kernel<<<static_cast<unsigned>(blocks), kBlock,
+                           9 * k * sizeof(float),
+                           static_cast<cudaStream_t>(stream)>>>(
+        tris, ids, k, ray_o, ray_d, t_min, t_max, active, n, out_t, out_tri,
+        out_u, out_v);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // out[i] = 1 where an active lane's segment overlaps none of the c boxes
 // (boxes: (6, c) f32) by the slab test with slack, else 0.
 extern "C" int dxrpt_cut_clear(const float* boxes, int32_t c,
@@ -236,16 +320,19 @@ extern "C" int dxrpt_cut_clear(const float* boxes, int32_t c,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Warps of the proxy (proxy 1, with k columns) or cut (proxy 0, with k
-// boxes) kernel that one SM of the current device holds at once, or minus
-// the CUDA error code.
+// Warps of the proxy (proxy 1, with k columns), proxy_closest (proxy 2,
+// with k columns) or cut (proxy 0, with k boxes) kernel that one SM of the
+// current device holds at once, or minus the CUDA error code.
 extern "C" int dxrpt_screen_resident_warps(int32_t proxy, int32_t k) {
     int blocks = 0;
     const cudaError_t err =
-        proxy ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, proxy_kernel, kBlock, 9 * k * sizeof(float))
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, cut_kernel, kBlock, 6 * k * sizeof(float));
+        proxy == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &blocks, proxy_closest_kernel, kBlock,
+                         9 * k * sizeof(float))
+        : proxy ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &blocks, proxy_kernel, kBlock, 9 * k * sizeof(float))
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &blocks, cut_kernel, kBlock, 6 * k * sizeof(float));
     return err != cudaSuccess ? -static_cast<int>(err)
                               : blocks * (kBlock / 32);
 }

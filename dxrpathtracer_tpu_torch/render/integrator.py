@@ -23,8 +23,22 @@ results (closest hits up to the triangle of an equal-t tie):
     per-ray shadow request first drop the lanes the AABB cut clears; an
     opaque per-ray shadow request then drops the lanes the dense proxy
     blocks (enable_dense_proxy; accel/proxy.py).
-The software raster, history seeding, split alpha and proxy seeding of the
-JAX package are not ported.
+Three more exact alternates of an opaque closest hit, off by default as in
+the JAX package, route in its order:
+  - the software raster (render/swraster.py): given bins (the session
+    builds them where DXRPT_RASTER_MIN_PIXELS lets it), depth-1 closest
+    hits on packet lanes with no alpha test and no history;
+  - temporal hit reuse (accel/history.py): given a history (the session
+    keeps one under DXRPT_HISTORY) and no alpha test in the frame, depth-1
+    closest hits are seeded by last sample's triangle (over the packet
+    walk, or the per-ray W8 walk without packets), and depth-1 sun rays on
+    the packet route retest last sample's occluder first;
+  - proxy seeding (accel/proxy.py, where the proxy is bound and
+    DXRPT_PROXY_SEED is set and not "0"): per-ray opaque closest hits are
+    bounded by the nearest proxy hit; it comes before the cut's screen.
+Split alpha (K candidates, masked raster bins) is not ported. Neither is the
+JAX package's punch-through with raster rounds for alpha-tested depth-1
+rays: they keep the in-walk alpha test below.
 
 Alpha testing runs inside the per-ray walk (the kernel's alpha
 instantiations, or the plain walk's accept_fn): the JAX package's in-loop
@@ -55,12 +69,16 @@ Semantics parity (each implemented below, as in the JAX package):
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
+from ..accel import history as history_lib
+from ..accel import proxy as proxy_lib
 from ..accel.gather import row_gather
-from ..accel.packet import PACKET, packet_any_hit, packet_closest_hit
+from ..accel.packet import (PACKET, packet_any_hit, packet_any_hit_rec,
+                            packet_closest_hit)
 from ..accel.proxy import cut_clear, screened_any
 from ..accel.sunspace import sun_any_hit
 from ..accel.traverse import AlphaTest, any_hit, closest_hit
@@ -75,6 +93,7 @@ from ..scene.textures import bilinear_from_meta
 from ..scene.types import (PACKED_SLOTS, TRI_SHADE_MAT, TRI_SHADE_META,
                            TRI_SHADE_VTX)
 from ..sky.cubemap import sample_cubemap
+from .swraster import raster_closest_hit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -543,9 +562,10 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                 total_num_pixels: int, first_set_idx: int = 1,
                 initial_is_diffuse: bool = False, t_min0=0.0, active0=None,
                 sample_idx=None, sun_grid=None, proxy=None, cut=None,
-                packet_coherent: bool = False):
+                packet_coherent: bool = False, history=None, raster=None):
     """Trace a wavefront of depth-1 rays to completion; returns (N, 3)
-    radiance clamped to [0, FP16Max].
+    radiance clamped to [0, FP16Max], and with a `history` (radiance, the
+    new history).
 
     `bvh` (W8) answers depth-1 per-ray closest hits and depth-1 per-ray sun
     and spot visibility, and every packet walk; `ray_bvh` (W32) every other
@@ -559,7 +579,14 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     the first PathTrace vertex (raygen consumed set 0). The baker passes
     initial_is_diffuse=True, t_min0=1e-4, its coverage as `active0` and its
     own sample counter as `sample_idx` (BakeRayGen, Baking.hlsl:395-409);
-    otherwise the CMJ index is the frame's."""
+    otherwise the CMJ index is the frame's.
+
+    `raster` (swraster.RasterBins of these lanes in packet-tile order)
+    answers the depth-1 closest hits; `history` ({"prim_tri", "sun_tri":
+    (N,) i32 in these lanes' order, "tri_table": (T, 9)}) seeds the
+    depth-1 closest hits and packet sun rays. Both are ignored where the
+    module docstring's conditions do not hold; a history passed in comes
+    back updated (only where it was used) all the same."""
     s = settings
     n = ray_o.shape[0]
     cmj_sample_idx = frame.curr_sample_idx if sample_idx is None else sample_idx
@@ -569,22 +596,40 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     cut = cut if s.enable_clear_cut else None
     use_packet = (packet_coherent and bool(s.enable_packet_traversal)
                   and n % PACKET == 0)
+    use_history = history is not None and alpha is None
+    new_history = None if history is None else dict(history)
+    proxy_seed = (proxy is not None
+                  and os.environ.get("DXRPT_PROXY_SEED", "0") != "0")
     state = _path_state0(ray_o, ray_d, t_max, t_min0, active0,
                          initial_is_diffuse)
     for depth, flags in _depth_schedule(s):
         a = alpha if flags["use_any_hit"] else None
+        table = bvh if depth == 1 else ray_bvh
         args = (state["ray_o"], state["ray_d"], state["t_min"],
                 state["t_max"])
-        if a is None and use_packet and depth == 1:
+        if (raster is not None and depth == 1 and use_packet and a is None
+                and not use_history):
+            rec = raster_closest_hit(raster, *args, state["active"])
+        elif a is None and use_history and depth == 1:
+            base = (
+                (lambda *r: packet_closest_hit(bvh, *r)) if use_packet
+                else (lambda *r: closest_hit(bvh, *r)))
+            rec, new_history["prim_tri"] = history_lib.seeded_closest(
+                base, history["tri_table"], history["prim_tri"], *args,
+                state["active"])
+        elif a is None and use_packet and depth == 1:
             rec = packet_closest_hit(bvh, *args, state["active"])
+        elif a is None and proxy_seed:
+            rec = proxy_lib.seeded_closest(
+                lambda *r, table=table: closest_hit(table, *r), proxy,
+                *args, state["active"])
         else:
             act = state["active"]
             if cut is not None and a is None:
                 # a lane the cut clears is a miss: inactive, it keeps the
                 # miss record (t = t_max, tri_id = -1)
                 act = act & ~cut_clear(cut, *args, act)
-            rec = closest_hit(bvh if depth == 1 else ray_bvh, *args, act,
-                              alpha=a)
+            rec = closest_hit(table, *args, act, alpha=a)
         state, reqs, mid = _shade_vertex(
             scene, sky_cube, s, frame, depth, flags, state, rec, pixel_idx,
             total_num_pixels, first_set_idx, cmj_sample_idx)
@@ -602,6 +647,11 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
             if (a is None and kind == "sun" and sun_grid is not None
                     and not (depth == 1 and use_packet)):
                 vis = sun_any_hit(sun_grid, *r)
+            elif (packet_kind and a is None and use_history and depth == 1
+                  and kind == "sun"):
+                vis, new_history["sun_tri"] = history_lib.seeded_any(
+                    lambda *q: packet_any_hit_rec(bvh, *q),
+                    history["tri_table"], history["sun_tri"], *r)
             elif packet_kind and a is None:
                 vis = packet_any_hit(bvh, *r)
             elif packet_kind:
@@ -616,7 +666,8 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
             for j, i in enumerate(positions):
                 vis_list[i] = vis[j * n:(j + 1) * n]
         state = _apply_vertex(s, sky_cube, depth, flags, state, mid, vis_list)
-    return torch.clamp(state["total"], 0.0, FP16Max)
+    radiance = torch.clamp(state["total"], 0.0, FP16Max)
+    return radiance if history is None else (radiance, new_history)
 
 
 def raygen(settings: AppSettings, frame: FrameConstants, width: int,
@@ -685,14 +736,17 @@ def _untile_order(x, height: int, width: int, ty: int, tx: int):
 
 def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                   frame: FrameConstants, width: int, height: int, accum,
-                  sun_grid=None, proxy=None, cut=None):
+                  sun_grid=None, proxy=None, cut=None, history=None,
+                  raster=None):
     """One progressive sample over the whole frame: raygen + trace + running
     mean (RaygenShader, RayTrace.hlsl:92-149). Returns the new accumulation
-    (height, width, 3) f32. With enable_packet_traversal on and a 128-pixel
-    tile dividing the image, the lanes are traced in tile order (each ray
-    with its pixel index, so the CMJ samples are the row-major frame's) and
-    the radiance is put back in row-major order; `sun_grid`, `proxy` and
-    `cut` go to trace_paths."""
+    (height, width, 3) f32, and with a `history` (accumulation, the new
+    history). With enable_packet_traversal on and a 128-pixel tile dividing
+    the image, the lanes are traced in tile order (each ray with its pixel
+    index, so the CMJ samples are the row-major frame's) and the radiance
+    is put back in row-major order; `sun_grid`, `proxy`, `cut` and
+    `history` (in the lanes' order) go to trace_paths, and `raster` where
+    its tiles are the lanes' tiles."""
     ray_start, ray_dir, ray_len, pixel_idx = raygen(
         settings, frame, width, height, accum.device)
     dims = (_packet_tile_dims(height, width)
@@ -700,13 +754,19 @@ def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     rays = (ray_start, ray_dir, ray_len, pixel_idx)
     if dims is not None:
         rays = tuple(_tile_order(x, height, width, *dims) for x in rays)
+    if raster is not None and (raster.ty, raster.tx) != dims:
+        raster = None
     radiance = trace_paths(scene, bvh, ray_bvh, sky_cube, settings, frame,
                            *rays, width * height, first_set_idx=1,
                            sun_grid=sun_grid, proxy=proxy, cut=cut,
-                           packet_coherent=dims is not None)
+                           packet_coherent=dims is not None, history=history,
+                           raster=raster)
+    if history is not None:
+        radiance, history = radiance
     if dims is not None:
         radiance = _untile_order(radiance, height, width, *dims)
     radiance = radiance.reshape(height, width, 3)
     idx = np.float32(frame.curr_sample_idx)
     lerp_factor = float(idx / (idx + np.float32(1.0)))  # f32, as the reference
-    return radiance + (accum - radiance) * lerp_factor
+    accum = radiance + (accum - radiance) * lerp_factor
+    return accum if history is None else (accum, history)

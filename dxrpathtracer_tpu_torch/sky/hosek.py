@@ -3,7 +3,8 @@
 Implements the analytic models of Hosek & Wilkie ("An Analytic Model for Full
 Spectral Sky-Dome Radiance", SIGGRAPH 2012; "Adding a Solar Radiance Function to
 the Hosek Skylight Model", IEEE CG&A 2013) from the published coefficient
-datasets (sky/data/hosek_data.npz, extracted by tools/extract_hosek_data.py).
+datasets (sky/data/hosek_data.npz, the port's copy of the JAX package's file,
+extracted by tools/extract_hosek_data.py).
 Fully vectorized over directions/wavelengths — the reference evaluates these
 per-texel in scalar C++ (HosekSky/ArHosekSkyModel.cpp); here one numpy pass
 builds the whole cubemap. A copy of dxrpathtracer_tpu/sky/hosek.py without
@@ -28,10 +29,9 @@ from pathlib import Path
 
 import numpy as np
 
-# The coefficient dataset lives once, in the JAX package's tree; the port
-# reads the file (it imports nothing from that package).
-_DATA_PATH = (Path(__file__).resolve().parents[2] / "dxrpathtracer_tpu" / "sky"
-              / "data" / "hosek_data.npz")
+# The coefficient dataset, the port's own copy (byte-equal to the JAX
+# package's, held so by tests/test_torch_history.py).
+_DATA_PATH = Path(__file__).resolve().parent / "data" / "hosek_data.npz"
 
 TERRESTRIAL_SOLAR_RADIUS = np.deg2rad(0.51) / 2.0
 _SOLAR_PIECES = 45

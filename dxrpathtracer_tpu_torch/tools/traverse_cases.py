@@ -61,6 +61,15 @@ and chip_smoke.py E1):
     to a record's suffix- and own-zmax, the longest chain, t_max <= t_min,
     inactive lanes and ragged n (tests/test_torch_sunspace.py and
     chip_smoke.py E1).
+
+The seeded and binned routes' (tests/test_torch_history.py,
+tests/test_torch_swraster.py and chip_smoke.py S):
+
+  - `history_predictions`: temporal-history predictions that mix true hits,
+    -1, random triangles and hits beyond t_max, with inactive lanes;
+  - `raster_edge_scene`: for the software raster, a tile deeper than 320
+    triangles, a repeated quad (equal t), a triangle through the near
+    plane and empty tiles.
 """
 
 import numpy as np
@@ -773,3 +782,59 @@ def concat_rays(sets):
         start += len(rays["o"])
     return ({f: np.concatenate([r[f] for r in sets.values()])
              for f in RAY_FIELDS}, slices)
+
+
+# ---------------------------------------------------------------------------
+# The seeded and binned routes' edge cases
+# ---------------------------------------------------------------------------
+
+def history_predictions(rays, hit_id, hit_t, occ_id, ntri, seed=0):
+    """Predictions for temporal hit reuse on `rays` given the rays' true
+    closest hits (hit_id, hit_t) and occluders (occ_id): per lane a true
+    hit (2/5), -1 (1/5), a random triangle, mostly one the ray misses
+    (1/5), or a true hit beyond t_max (1/5: t_max cut to half the hit's
+    t); a fifth of the lanes made inactive. Returns (rays with that t_max
+    and activity, closest predictions, occluder predictions)."""
+    rng = np.random.default_rng(seed)
+    n = len(hit_id)
+    cat = rng.integers(0, 5, n)
+    rand = rng.integers(0, ntri, n).astype(np.int32)
+    out = {f: np.array(rays[f]) for f in RAY_FIELDS}
+    beyond = (cat == 4) & (hit_id >= 0)
+    out["tmax"] = np.where(beyond, hit_t * np.float32(0.5),
+                           out["tmax"]).astype(np.float32)
+    out["active"] = out["active"] & (rng.random(n) > 0.2)
+
+    def mix(true):
+        return np.select([cat <= 1, cat == 2, cat == 3], [true, -1, rand],
+                         true).astype(np.int32)
+    return out, mix(hit_id), mix(occ_id)
+
+
+def _quad_tris(x0, x1, y0, y1, z):
+    """Two triangles of an axis-aligned quad at depth z, (2, 3, 3)."""
+    a, b = [x0, y0, z], [x1, y0, z]
+    c, d = [x1, y1, z], [x0, y1, z]
+    return np.array([[a, b, c], [a, c, d]], np.float32)
+
+
+RASTER_STACK = 400  # quads stacked in front of one screen tile
+
+
+def raster_edge_scene():
+    """(v0, v1, v2) for the software raster's edge cases, seen by a camera
+    at the origin looking down +z (FirstPersonCamera's default pose): a
+    stack of RASTER_STACK small quads at z = 3 + 0.01 i in front of the
+    screen's centre (one tile's list holds all 800 triangles: more than the
+    JAX package's 64 + 256 levels before its tail), a quad repeated twice
+    at z = 2 (equal t: the lower id wins), and last a floor triangle that
+    crosses the near plane (binned by the clip at w = near). Triangle ids:
+    the stack 0..799, the repeated quad 800..803, the floor 804. The top
+    of the frame sees nothing (its tiles are empty)."""
+    tris = [_quad_tris(-0.15, 0.15, -0.15, 0.05, 3.0 + 0.01 * i)
+            for i in range(RASTER_STACK)]
+    tris += [_quad_tris(-0.3, 0.3, 0.1, 0.3, 2.0)] * 2
+    tris.append(np.array([[[-5, -1, -5], [5, -1, -5], [0, -1, 20]]],
+                         np.float32))
+    t = np.concatenate(tris)
+    return t[:, 0].copy(), t[:, 1].copy(), t[:, 2].copy()

@@ -195,11 +195,10 @@ def test_cuda_source_edit_reloads_its_module_in_a_copy(tmp_path):
     shutil.copytree(os.path.join(REPO, PKG), copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
     # what the package reads outside itself: the C++ source of its SAH
-    # library (keyed by its hash, built at first use) and the sky's table
+    # library (keyed by its hash, built at first use); its data files are
+    # its own
     shutil.copytree(os.path.join(REPO, "native"), tmp_path / "native",
                     ignore=shutil.ignore_patterns("*.so"))
-    shutil.copytree(os.path.join(REPO, "dxrpathtracer_tpu", "sky", "data"),
-                    tmp_path / "dxrpathtracer_tpu" / "sky" / "data")
     _run(_CU_EDIT, str(tmp_path), cwd=tmp_path, pythonpath=str(tmp_path))
     built = [p.name for p in (copy / "build").glob("lib*.so")]
     assert not [n for n in built if n.startswith(("libtraverse",

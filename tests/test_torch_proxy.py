@@ -10,8 +10,13 @@ On the CPU the port runs the kernels' plain versions. They are held
     t_max <= t_min, zero and -0 direction components; the JAX side in a
     subprocess whose XLA:CPU emits no FMA, as tests/test_torch_traverse.py
     runs it, so both round every product);
+    The proxy's nearest hit (proxy_closest_plain) is held to JAX's
+    proxy_closest the same way (t, tri id, u, v), and seeded_closest's
+    walk bound, t * (1 + 1e-5), to JAX's rounding of it;
   - to the per-ray walk: screened visibility equal to the unscreened walk,
-    and cut-screened closest hits equal to the walk's.
+    cut-screened closest hits equal to the walk's, and proxy-seeded closest
+    hits equal to the walk's; a BoxTest session with DXRPT_PROXY_SEED=1
+    renders the image it renders without.
 The builders are held byte for byte to the JAX package's (proxy columns
 and ids, cut boxes), and the host probe to its value where no direction
 component is tiny. The three faults of the JAX module that the port does not
@@ -91,6 +96,14 @@ for case in sorted({k.split("__")[0] for k in inp}):
     rays = [jnp.asarray(g(f)) for f in ("o", "d", "tmin", "tmax", "active")]
     out[case + "__blocked"] = np.asarray(jax.jit(proxy.proxy_blocked)(px, *rays))
     out[case + "__clear"] = np.asarray(jax.jit(proxy.cut_clear)(cut, *rays))
+    res = jax.jit(proxy.proxy_closest)(px, *rays)
+    for f, x in zip(("t", "tri_id", "u", "v"), res):
+        out[case + "__closest__" + f] = np.asarray(x)
+    # seeded_closest's walk bound, as JAX rounds it
+    pt, ptri = res[0], res[1]
+    out[case + "__bound"] = np.asarray(jax.jit(
+        lambda pt, ptri: jnp.where(ptri >= 0, pt * (1.0 + 1e-5), pt))(
+            pt, ptri))
 np.savez(sys.argv[2], **out)
 """
 
@@ -191,6 +204,84 @@ def test_plain_screens_match_jax_bit_for_bit(reference, case):
         assert bool((act & (tmax <= tmin)).any())
         assert bool((act & ~blocked).any())
         assert bool(((d == 0) & torch.signbit(d)).any())
+
+
+@pytest.mark.parametrize("case", ["soup", "ties", *EDGE_CASES])
+def test_plain_proxy_closest_matches_jax_bit_for_bit(reference, case):
+    """proxy_closest_plain against JAX proxy_closest (t, tri id, u, v on
+    every lane), and seeded_closest's walk bound pt * (1 + 1e-5) as JAX
+    rounds it."""
+    pos, tri, k, rays = _case(case)
+    px = proxy.build_dense_proxy(pos, tri, k=k)
+    rays = tuple(torch.from_numpy(np.ascontiguousarray(rays[f]))
+                 for f in RAY_FIELDS)
+    got = proxy.proxy_closest(px, *rays)
+    for f in ("t", "tri_id", "u", "v"):
+        x, want = getattr(got, f).numpy(), reference[case + "__closest__" + f]
+        if x.dtype == np.float32:
+            x, want = x.view(np.int32), want.view(np.int32)
+        np.testing.assert_array_equal(x, want, err_msg=f)
+    slack = torch.tensor(proxy.SEED_SLACK)
+    bound = torch.where(got.tri_id >= 0, got.t * slack, got.t)
+    np.testing.assert_array_equal(bound.numpy().view(np.int32),
+                                  reference[case + "__bound"].view(np.int32))
+    hit = got.tri_id.numpy() >= 0
+    print(f"{case}: K {px.k}, {int(hit.sum())} proxy hits of "
+          f"{rays[0].shape[0]}")
+    assert 0 < hit.sum() < rays[0].shape[0]
+    # a lane without a hit keeps t = t_max, u = v = 0; hits are the proxy's
+    np.testing.assert_array_equal(got.t.numpy()[~hit], rays[3].numpy()[~hit])
+    assert not got.u.numpy()[~hit].any() and not got.v.numpy()[~hit].any()
+    assert np.isin(got.tri_id.numpy()[hit], px.tri_id.numpy()).all()
+    assert not hit[~rays[4].numpy()].any()
+
+
+@pytest.mark.parametrize("case", ["soup", "ties"])
+def test_seeded_closest_equals_the_walk(case):
+    """The proxy-seeded per-ray walk gives the unseeded walk's hits (JAX
+    tests/test_proxy.py::test_seeded_closest_equals_plain), and the seed
+    bounds some lanes."""
+    tris, _ = traverse_cases.cases(0)[case]
+    pos, tri = _indexed(*tris)
+    px = proxy.build_dense_proxy(pos, tri)
+    bvh = build_bvh(*tris, width=32)
+    rays = _rays(case)
+    plain = traverse.closest_hit(bvh, *rays)
+    seeded = proxy.seeded_closest(
+        lambda *r: traverse.closest_hit(bvh, *r), px, *rays)
+    for f in ("t", "u", "v"):
+        assert torch.equal(getattr(plain, f).view(torch.int32),
+                           getattr(seeded, f).view(torch.int32)), f
+    assert torch.equal(plain.tri_id, seeded.tri_id)
+    assert bool((proxy.proxy_closest(px, *rays).tri_id >= 0).any())
+
+
+def test_session_proxy_seed_renders_the_same_image(monkeypatch):
+    """BoxTest with DXRPT_PROXY_SEED=1 (per-ray closest hits proxy-seeded)
+    renders the image it renders without, bit for bit."""
+    calls = []
+    seed = proxy.proxy_closest
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return seed(*a, **kw)
+
+    monkeypatch.setattr(proxy, "proxy_closest", counted)
+    imgs = {}
+    for on in (False, True):
+        if on:
+            monkeypatch.setenv("DXRPT_PROXY_SEED", "1")
+        else:
+            monkeypatch.delenv("DXRPT_PROXY_SEED", raising=False)
+        sess = RenderSession(AppSettings(current_scene=Scenes.BoxTest,
+                                         max_path_length=3), 64, 32,
+                             device="cpu")
+        sess.render_frame()
+        sess.render_frame()
+        imgs[on] = sess.accum
+        # one seeded closest hit a sample (depth 2; packets take depth 1)
+        assert len(calls) == (2 if on else 0)
+    assert torch.equal(imgs[False], imgs[True])
 
 
 @pytest.mark.parametrize("case", ["soup", "ties"])
