@@ -3650,6 +3650,15 @@ def hit_bits_differ(got, ref):
                for f in ("t", "u", "v")) + int((got.tri_id != ref.tri_id).sum())
 
 
+def hit_abs_err(got, ref, both):
+    """The largest |got - ref| of t, u and v over the lanes `both` marks
+    (lanes where both hit), 0 where there is none; got and ref are
+    (t, u, v) triples."""
+    if not bool(both.any()):
+        return 0.0
+    return max(float((g - r)[both].abs().max()) for g, r in zip(got, ref))
+
+
 def against_walk(got, walk):
     """{lanes whose t differs from the walk's, of them nearer, and lanes of
     another triangle at an equal t}."""
@@ -3725,7 +3734,9 @@ def s_history(base_img, smi):
         extra = {"rays": n, "active": int(act.sum()),
                  "predicted": int((act & (pred >= 0)).sum()),
                  "revalidated": int(ok.sum()), "rows_read": rows_read,
-                 "mismatches_vs_plain": mism, "max_abs_err": 0.0}
+                 "mismatches_vs_plain": mism,
+                 "max_abs_err": hit_abs_err(got[1:], ref[1:],
+                                            got[0] & ref[0])}
         if name == "d1_closest":
             pk = lambda *r: packet.packet_closest_hit(bvh, *r)  # noqa: E731
             seeded, _ = history.seeded_closest(pk, table, pred, o, d, tmin,
@@ -3814,7 +3825,10 @@ def s_proxy(base_img, smi):
         extra = {"rays": n, "active": int(act.sum()), "k": px.k,
                  "proxy_hits": int(got.hit.sum()),
                  "mismatches_vs_plain": hit_bits_differ(got, ref),
-                 "max_abs_err": 0.0, "column_tests": stats["tests"], **cmp_,
+                 "max_abs_err": hit_abs_err((got.t, got.u, got.v),
+                                            (ref.t, ref.u, ref.v),
+                                            got.hit & ref.hit),
+                 "column_tests": stats["tests"], **cmp_,
                  "walk_ms": walk_ms({
                      "per_ray_W32": lambda: w32(*rays),
                      "per_ray_W32_seeded_bound": lambda: w32(o, d, tmin,
@@ -3888,7 +3902,10 @@ def s_raster(base_img, smi):
                  "session_build_s": sess.raster_build_s,
                  "hits": int(got.hit.sum()),
                  "mismatches_vs_plain": hit_bits_differ(got, ref),
-                 "max_abs_err": 0.0, "triangle_tests": stats["tests"],
+                 "max_abs_err": hit_abs_err((got.t, got.u, got.v),
+                                            (ref.t, ref.u, ref.v),
+                                            got.hit & ref.hit),
+                 "triangle_tests": stats["tests"],
                  **cmp_, "walk_ms": walk_ms({
                      "packet_W8": lambda: packet.packet_closest_hit(
                          sess.bvh, *rays),

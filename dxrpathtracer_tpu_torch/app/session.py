@@ -123,16 +123,16 @@ class RenderSession:
                 self.proxy = self.proxy.to(self.device)
             if self.cut is not None:
                 self.cut = self.cut.to(self.device)
-            # the temporal history's triangle table (accel/history.py),
-            # under the JAX package's switch
-            self.tri_table = None
-            if os.environ.get("DXRPT_HISTORY"):
-                self.tri_table = torch.from_numpy(build_tri_table(
-                    scene.positions.numpy(), scene.tri_idx.numpy())
-                ).to(self.device)
         # The scene on the host (CPU tensors; np.asarray views them) that
         # the lightmap atlas builders read, as the JAX package's scene_host.
         self.scene_host = scene
+        # the temporal history, under the JAX package's switch; its
+        # triangle table (accel/history.py) is built now, or by the raster
+        # on first use
+        self.tri_table = None
+        self._history_on = bool(os.environ.get("DXRPT_HISTORY"))
+        if self._history_on:
+            self._triangle_table()
         self.scene = scene.to(self.device)
 
         self.camera = FirstPersonCamera(aspect=width / height)
@@ -151,7 +151,6 @@ class RenderSession:
         self.sun_grid_build_s = None  # host seconds of the last grid build
         self.raster_bins = None
         self._raster_key = None
-        self._raster_tri_table = None
         self.raster_build_s = None    # host seconds of the last binning
 
         self.sample_idx = 0
@@ -221,7 +220,7 @@ class RenderSession:
         # the temporal history restarts with it (-1: no prediction; a stale
         # id would still be exact, only slower)
         self._history = None
-        if self.tri_table is not None:
+        if self._history_on:
             n = self.height * self.width
             self._history = {
                 k: torch.full((n,), -1, dtype=torch.int32, device=self.device)
@@ -233,6 +232,16 @@ class RenderSession:
         """The temporal history {"prim_tri", "sun_tri": (H*W,) int32 in the
         frame's lane order}, or None without DXRPT_HISTORY."""
         return self._history
+
+    def _triangle_table(self):
+        """The (T, 9) triangle table of the session's geometry on its
+        device, which the history and the raster's bins share; built on
+        first use."""
+        if self.tri_table is None:
+            self.tri_table = torch.from_numpy(build_tri_table(
+                self.scene_host.positions.numpy(),
+                self.scene_host.tri_idx.numpy())).to(self.device)
+        return self.tri_table
 
     # The software raster is off by default, as in the JAX package (where it
     # was measured a loss on the TPU); DXRPT_RASTER_MIN_PIXELS lowers the
@@ -263,18 +272,13 @@ class RenderSession:
             if want:
                 t0 = time.perf_counter()
                 with self.profiler.cpu_scope("BuildRasterBins"):
-                    pos = self.scene_host.positions.numpy()
-                    tri = self.scene_host.tri_idx.numpy()
-                    if self._raster_tri_table is None:
-                        self._raster_tri_table = (
-                            self.tri_table if self.tri_table is not None
-                            else torch.from_numpy(build_tri_table(pos, tri))
-                            .to(self.device))
                     self.raster_bins = build_raster_bins(
-                        pos, tri, np.asarray(self.camera.view_projection(),
-                                             np.float64),
+                        self.scene_host.positions.numpy(),
+                        self.scene_host.tri_idx.numpy(),
+                        np.asarray(self.camera.view_projection(),
+                                   np.float64),
                         float(self.camera.near_clip), self.width,
-                        self.height, *dims, self._raster_tri_table
+                        self.height, *dims, self._triangle_table()
                     ).to(self.device)
                 self.raster_build_s = time.perf_counter() - t0
         return self.raster_bins
@@ -311,10 +315,11 @@ class RenderSession:
         routes it); resets the accumulation. The sun-space grid, the dense
         proxy, the AABB cut, the history's triangle table (and so the
         history) and the raster bins describe the geometry as it was, so
-        they are dropped (packets walk `bvh`)."""
+        they are dropped and the history goes off (packets walk `bvh`)."""
         self.scene, self.bvh, self.bvh_ray = scene, bvh, bvh
         self.proxy = self.cut = self.sun_grid = None
-        self.tri_table = self._raster_tri_table = self.raster_bins = None
+        self.tri_table = self.raster_bins = None
+        self._history_on = False
         self._sun_grid_key = self._raster_key = None
         self._geometry_moved = True
         self.reset_accumulation()

@@ -119,6 +119,50 @@ for case in sorted({k.split("__")[0] for k in inp}):
         out[case + "__" + f] = np.asarray(getattr(rec, f))
     out[case + "__deep_tiles"] = np.asarray(
         int((np.asarray(bins.deep_tiles) >= 0).sum()))
+
+# The `animate` command's state on its second of 3 frames (app/cli.py,
+# cmd_animate): a BoxTest session with the raster on, its host-built
+# structures dropped as the command drops them and its geometry turned and
+# rebuilt on the device as the command does; the camera rays answered by the
+# bins the session keeps and by the walk of the turned geometry.
+import os
+os.environ["DXRPT_RASTER_MIN_PIXELS"] = "1"
+from dxrpathtracer_tpu.accel.device_build import build_table_device, lbvh_plan
+from dxrpathtracer_tpu.accel.lbvh import WIDTH, FlatBVH
+from dxrpathtracer_tpu.accel.traverse import closest_hit
+from dxrpathtracer_tpu.app.session import RenderSession
+from dxrpathtracer_tpu.app.settings import AppSettings, Scenes
+from dxrpathtracer_tpu.render import integrator
+from dxrpathtracer_tpu.scene.animate import rotate_scene_y
+
+w, h = 128, 64
+sess = RenderSession(settings=AppSettings(current_scene=Scenes.BoxTest),
+                     width=w, height=h)
+sess.bvh2 = sess.bvh_ray = sess.sun_grid = sess._tri_table = None
+plan = lbvh_plan(sess.scene_host.num_triangles)
+pos = np.asarray(sess.scene_host.positions)
+lo, hi = pos.min(axis=0), pos.max(axis=0)
+center = np.array([(lo[0] + hi[0]) / 2, 0.0, (lo[2] + hi[2]) / 2],
+                  np.float32)
+sc = rotate_scene_y(sess.scene, jnp.float32(2.0 * np.pi / 3), center)
+table = build_table_device(*(sc.positions[sc.tri_idx[:, k]]
+                             for k in range(3)), plan)
+bvh = FlatBVH(table=table, num_rows=plan.num_rows, num_tris=plan.num_tris,
+              num_leaves=plan.num_leaves, leaf_size=plan.leaf_size,
+              max_depth=plan.depth + 2, root_code=plan.root_code, width=WIDTH)
+o, d, length, _ = integrator.raygen(sess.settings, sess.frame_constants(0),
+                                    w, h)
+ty, tx = integrator._packet_tile_dims(h, w)
+o, d, length = (integrator._tile_order(x, h, w, ty, tx)
+                for x in (o, d, length))
+rays = (o, d, jnp.zeros_like(length), length,
+        jnp.ones(length.shape, bool))
+out["animate__slabs"] = np.asarray(len(sess._raster_slabs or []))
+out["animate__raster"] = np.asarray(jax.jit(swraster.raster_closest_hit)(
+    sess._raster_slabs[0], *rays).tri_id)
+out["animate__walk"] = np.asarray(closest_hit(bvh, *rays).tri_id)
+out["animate__unturned_walk"] = np.asarray(
+    closest_hit(sess.bvh, *rays).tri_id)
 np.savez(sys.argv[2], **out)
 """
 
@@ -308,16 +352,22 @@ def test_session_raster_image_and_bins(monkeypatch):
     assert on.raster_bins is None and len(calls) == 4
 
 
-def test_jax_animate_keeps_stale_raster_bins():
+def test_jax_animate_keeps_stale_raster_bins(frames):
     """A reference-side fault the port does not copy: the JAX `animate`
     command drops the session's history table for the moving geometry but
-    keeps the raster bins its session built for the unrotated scene
-    (dxrpathtracer_tpu/app/cli.py, cmd_animate), so with the raster on
-    its camera rays would be binned against stale triangles. The port's
+    keeps the raster bins its session built for the unturned scene
+    (dxrpathtracer_tpu/app/cli.py, cmd_animate). With the raster on, its
+    step answers the camera rays of a turned frame from those bins: they
+    give the unturned scene's hits, not the turned geometry's. The port's
     use_geometry drops the bins (test_session_raster_image_and_bins)."""
-    import inspect
-
-    from dxrpathtracer_tpu.app import cli
-    src = inspect.getsource(cli.cmd_animate)
-    assert "sess._tri_table = None" in src
-    assert "_raster_slabs" not in src
+    _, ref = frames
+    raster, walk = ref["animate__raster"], ref["animate__walk"]
+    unturned = ref["animate__unturned_walk"]
+    stale = raster != walk
+    print(f"JAX animate, frame 2 of 3: {int(ref['animate__slabs'])} raster "
+          f"slabs kept; the stale bins' triangle differs from the turned "
+          f"walk's on {int(stale.sum())} of {len(raster)} lanes, from the "
+          f"unturned walk's on {int((raster != unturned).sum())}")
+    assert int(ref["animate__slabs"]) > 0
+    assert int(stale.sum()) > len(raster) // 10
+    np.testing.assert_array_equal(raster, unturned)
