@@ -21,8 +21,9 @@ engines the default settings route through (packets for depth-1 rays, the
 sun-space grid for sun shadows, the dense-proxy and AABB-cut screens in
 front of the per-ray walks) and the seeded and binned alternates of an
 opaque closest hit that the JAX package keeps off by default (temporal hit
-reuse, proxy seeding, the software raster of camera rays). Phases, each
-fatal on failure:
+reuse, proxy seeding, the software raster of camera rays), and its split
+alpha route and load-time alpha subdivision, off by default too. Phases,
+each fatal on failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
@@ -35,10 +36,11 @@ fatal on failure:
      kernel (eight), ptxas' registers, stack frame and spills and the warps
      one SM holds at once (the persistent grid); the opaque W32
      instantiations must have no stack frame and no spills; the same ptxas
-     figures of the eight engine kernels (packet closest and any, the grid
-     walk, the proxy and cut screens, the proxy's nearest hit, the history's
-     revalidation, the raster), with the warps one SM holds at once; the
-     packet kernels (one warp per
+     figures of the engine kernels (packet closest and any, their
+     opaque-only instantiations and the K-candidate ones for K = 1..8, the
+     grid walk, the proxy and cut screens, the proxy's nearest hit, the
+     history's revalidation, the raster), with the warps one SM holds at
+     once; the packet kernels but the K-candidate ones (one warp per
      packet, its stack in registers) must have no stack frame and no
      spills;
   3. traversal kernel against plain: the kernel and its plain torch version,
@@ -154,6 +156,33 @@ fatal on failure:
      closest, spot and terminal opaque), the grid once (depth-2 sun) and
      the proxy twice (depth-2 spot and terminal); at 3: 7 traversal
      launches and no engine (every ray alpha-tested);
+  K. the split alpha route (DXRPT_SPLIT_ALPHA=1: opaque-only packet walks,
+     the K-candidate packet walk of the alpha-only table, the candidates'
+     taps; with the raster on, bins masked to opaque triangles) and the
+     load-time subdivision (DXRPT_ALPHA_SPLIT=1), on that session: one
+     split sample at max_any_hit_path_length 1 recorded, each of its four
+     packet calls (depth-1 opaque-only closest on W8 and its K = 8
+     candidates, K = 4 too; depth-1 sun opaque-only any hit and its
+     candidates) against its plain twin, 0 lanes that differ in the hit,
+     in every candidate slot's t, tri id, u, v and in the overflow bit,
+     with kernel and plain ms, the per-ray alpha walk on the same rays,
+     visits and the bound; the whole split closest hit's ms; the
+     K-candidate edge cases of tools/traverse_cases.py (overflow on a
+     leaf-12 table, a full buffer of rejected candidates, equal t, an
+     inactive packet, K = 1), each mode against its twin; 10 frames after
+     a first of the default alpha route and the split route at
+     max_any_hit_path_length 1 and 3 and of the split route with the
+     masked bins at 1 (ms/frame, spread, launches per frame: one
+     opaque-only closest (none with the bins) and any hit and two
+     K-candidate walks; rel-RMSE against the default route), the
+     subdivided scene's stats, triangles and frames; each route's frame
+     (split at max_any_hit_path_length 3, split with the masked bins at 1,
+     the subdivided scene at 1) at 256x128 on the card and on the CPU (the
+     plain twins): rel-RMSE <= 1e-4, and in that frame on the card the
+     split kernels' launches as the route wants (1, 1, 2; 0, 1, 2 with the
+     bins; none on the subdivided scene), candidates tapped on the split
+     routes and none elsewhere, the bins masked on the raster route, on
+     the CPU no launch;
   C. same alpha frame, kernels against plain: one 240x135 sample on the
      card and on the CPU, every traversal call's rays and results recorded.
      At the reference's max_any_hit_path_length 1: relative RMSE <= 1e-4.
@@ -334,19 +363,27 @@ pair's triangle against its tile's active lanes).
 The line before the last is {"kernels": [...]}: one entry per traversal
 instantiation, one for the gather kernel and one for each engine kernel
 (packet_closest, packet_any, sun_any_hit, proxy_blocked, cut_clear,
-history_revalidate, proxy_closest, raster_closest_hit), whose `launches`
-count the main paths' runs (the opaque frame, the alpha frames, the bake,
-the raster frames of R1 and R2, the imported frames of F, the animation of
-AN, the viewer of I1-I3, E2's frames and bake steps and S's routes) and
+history_revalidate, proxy_closest, raster_closest_hit, and the split
+alpha route's packet_closest_opaque, packet_any_opaque and
+packet_candidates), whose `launches` count the main paths' runs (the
+opaque frame, the alpha frames, the bake, the raster frames of R1 and R2,
+the imported frames of F, the animation of AN, the viewer of I1-I3, E2's
+frames and bake steps, S's routes and K's split routes) and
 every one of which must be > 0; the last is {"ok": true, "device": {...}}.
-Full results also go to chiprun_out/chip_smoke.json. Exits non-zero, with
-no result line, when there is no CUDA device or any phase fails. Imports no
-JAX.
+The CPU frames of K's, C's and R4's card-vs-CPU checks, the longest parts
+of the run, render in three worker processes (spawned, two torch threads
+each, at the lowest priority) from the end of K's timed runs on, while
+the card goes on with the phases after (they are paused during R1, R2 and
+I1-I3, whose host-bound frames they would slow); each check reads its
+frames after phase I, and the workers are stopped however the run ends. Full results
+also go to chiprun_out/chip_smoke.json. Exits non-zero, with no result
+line, when there is no CUDA device or any phase fails. Imports no JAX.
 """
 
 import contextlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -379,6 +416,12 @@ ENGINE_KERNELS = {
                       "dxrpathtracer_tpu/accel/proxy.py:112"),
     "raster_closest_hit": ("dxrpathtracer_tpu_torch/csrc/swraster.cu",
                            "dxrpathtracer_tpu/render/swraster.py:360"),
+    "packet_closest_opaque": ("dxrpathtracer_tpu_torch/csrc/packet.cu",
+                              "dxrpathtracer_tpu/accel/packet.py:234"),
+    "packet_any_opaque": ("dxrpathtracer_tpu_torch/csrc/packet.cu",
+                          "dxrpathtracer_tpu/accel/packet.py:234"),
+    "packet_candidates": ("dxrpathtracer_tpu_torch/csrc/packet.cu",
+                          "dxrpathtracer_tpu/accel/packet.py:254"),
 }
 # the engines of phase S, which only their own routes launch
 ROUTE_KERNELS = ("history_revalidate", "proxy_closest", "raster_closest_hit")
@@ -387,6 +430,11 @@ ROUTE_KERNELS = ("history_revalidate", "proxy_closest", "raster_closest_hit")
 DEVICE = "cuda"
 FRAME_SIZE = (1920, 1080)
 SAME_FRAME_SIZE = (240, 135)
+# The CPU frames of C's, R4's and K's card-vs-CPU checks take the longest of
+# the run: CPU_WORKERS spawned processes of CPU_WORKER_THREADS torch threads
+# each render them while the card goes on with the next phases
+CPU_WORKERS = 3
+CPU_WORKER_THREADS = 2
 BAKE_RES = 4096
 MICROBENCH_ROWS, MICROBENCH_N = 32768, 1 << 20
 HBM_BYTES_PER_S = 3.35e12
@@ -456,6 +504,60 @@ def bound_ms(nbytes, ops=0):
 
 def sync():
     torch.cuda.synchronize()
+
+
+_CPU_POOL = []
+
+
+def _cpu_worker_init():
+    # the lowest priority: the host work of the phases that run meanwhile
+    # (the raster's depth-map rays, the viewer) goes first
+    os.nice(19)
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def _cpu_run(payload):
+    fn, args = pickle.loads(payload)
+    return fn(*args)
+
+
+def cpu_submit(fn, *args):
+    """fn(*args) in one of the CPU_WORKERS worker processes (spawned, so
+    without the card's state), while this process goes on: the
+    AsyncResult, whose get() returns fn's result or raises its error. The
+    arguments are pickled by value here and now: the pool's own pickler
+    would move their tensors into shared memory from its feeder thread,
+    under the phases that read them meanwhile."""
+    if not _CPU_POOL:
+        import multiprocessing
+        _CPU_POOL.append(multiprocessing.get_context("spawn").Pool(
+            CPU_WORKERS, initializer=_cpu_worker_init))
+    return _CPU_POOL[0].apply_async(_cpu_run, (pickle.dumps((fn, args)),))
+
+
+@contextlib.contextmanager
+def cpu_workers_paused():
+    """The workers stopped inside (SIGSTOP, then SIGCONT): for the phases
+    whose frames are timed on the host's clock and wait on its work (the
+    raster's depth-map rays and froxels, the viewer's present), which the
+    workers slow by a third even at the lowest priority."""
+    import multiprocessing
+    import signal
+    workers = multiprocessing.active_children()
+    for w in workers:
+        os.kill(w.pid, signal.SIGSTOP)
+    try:
+        yield
+    finally:
+        for w in workers:
+            os.kill(w.pid, signal.SIGCONT)
+
+
+def stop_cpu_workers():
+    for pool in _CPU_POOL:
+        pool.terminate()
+        pool.join()
+    _CPU_POOL.clear()
 
 
 def phase_device():
@@ -528,6 +630,10 @@ def phase_build():
     warps = engine_resident_warps(packet, sunspace, proxy)
     warps["history_revalidate"] = history.resident_warps()
     warps["raster_closest_hit"] = swraster.resident_warps()
+    warps["packet_closest_opaque"] = packet.resident_warps(False)
+    warps["packet_any_opaque"] = packet.resident_warps(True)
+    for k in range(1, packet.MAX_CANDS + 1):
+        warps[f"packet_candidates_k{k}"] = packet.resident_warps(False, k)
     for lib in (packet, sunspace, proxy, history, swraster):
         for name, row in ptxas_entries(lib.BUILD_LOG).items():
             if name in warps:
@@ -535,14 +641,19 @@ def phase_build():
             engines[name] = row
             log(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
             # one warp per packet: the stack lives in registers; the grid
-            # walk keeps its rays and records in registers
-            if (name.startswith("packet") or name == "sun_any_hit") and (
+            # walk keeps its rays and records in registers (the K-candidate
+            # walk's figures are reported, not held)
+            if ((name.startswith("packet") and "candidates" not in name)
+                    or name == "sun_any_hit") and (
                     row["stack_frame_bytes"] or row["spill_stores"]
                     or row["spill_loads"]):
                 raise SystemExit(f"chip_smoke: the {name} kernel uses local "
                                  f"memory: {row}")
     want = {"packet_closest", "packet_any", "sun_any_hit", "proxy_blocked",
-            "cut_clear", *ROUTE_KERNELS}
+            "cut_clear", *ROUTE_KERNELS, "packet_closest_opaque",
+            "packet_any_opaque",
+            *(f"packet_candidates_k{k}"
+              for k in range(1, packet.MAX_CANDS + 1))}
     if set(engines) != want:
         raise SystemExit(f"chip_smoke: ptxas reported engine kernels "
                          f"{sorted(engines)}, want {sorted(want)}")
@@ -575,12 +686,17 @@ def engine_resident_warps(packet, sunspace, proxy):
 
 def ptxas_entries(log_text):
     """{kernel: registers, stack frame and spills} of the engines' kernels
-    in nvcc's -Xptxas -v output (packet_kernel<false/true>, sungrid_kernel,
-    proxy_kernel, proxy_closest_kernel, cut_kernel, revalidate_kernel,
-    raster_kernel)."""
+    in nvcc's -Xptxas -v output (packet_kernel<first_hit, exclude_alpha,
+    K> in its closest, any, opaque-only and K = 1..8 candidate
+    instantiations, sungrid_kernel, proxy_kernel, proxy_closest_kernel,
+    cut_kernel, revalidate_kernel, raster_kernel)."""
     import re
-    names = {"packet_kernelILb0E": "packet_closest",
-             "packet_kernelILb1E": "packet_any",
+    names = {"packet_kernelILb0ELb0ELi0E": "packet_closest",
+             "packet_kernelILb1ELb0ELi0E": "packet_any",
+             "packet_kernelILb0ELb1ELi0E": "packet_closest_opaque",
+             "packet_kernelILb1ELb1ELi0E": "packet_any_opaque",
+             **{f"packet_kernelILb0ELb0ELi{k}E": f"packet_candidates_k{k}"
+                for k in range(1, 9)},
              "sungrid_kernel": "sun_any_hit", "proxy_kernel": "proxy_blocked",
              "proxy_closest_kernel": "proxy_closest",
              "cut_kernel": "cut_clear",
@@ -1047,7 +1163,8 @@ def reset_launches():
     from dxrpathtracer_tpu_torch.render import swraster
     gather.KERNEL_LAUNCHES = 0
     traverse.KERNEL_LAUNCHES.clear()
-    packet.KERNEL_LAUNCHES.update(closest=0, any=0)
+    packet.KERNEL_LAUNCHES.update(closest=0, any=0, closest_opaque=0,
+                                  any_opaque=0, candidates=0)
     sunspace.KERNEL_LAUNCHES = 0
     proxy.KERNEL_LAUNCHES.update(proxy_blocked=0, proxy_closest=0,
                                  cut_clear=0)
@@ -1073,7 +1190,10 @@ def read_launches():
             "cut_clear": proxy.KERNEL_LAUNCHES["cut_clear"],
             "history_revalidate": history.KERNEL_LAUNCHES,
             "proxy_closest": proxy.KERNEL_LAUNCHES["proxy_closest"],
-            "raster_closest_hit": swraster.KERNEL_LAUNCHES}
+            "raster_closest_hit": swraster.KERNEL_LAUNCHES,
+            "packet_closest_opaque": packet.KERNEL_LAUNCHES["closest_opaque"],
+            "packet_any_opaque": packet.KERNEL_LAUNCHES["any_opaque"],
+            "packet_candidates": packet.KERNEL_LAUNCHES["candidates"]}
 
 
 def check_launches(label, launches, frames, traverse, **engines):
@@ -1176,18 +1296,26 @@ def phase_alpha(smi):
            "spot_lights": scene.num_lights,
            "init_s": init_s, "runs": runs}
     launches = [r["kernel_launches"] for r in runs.values()]
-    return out, checks, launches
+    return out, checks, launches, sess
 
 
-def recorded_frame(scene, preset, settings, dev, inject=None):
-    """One SAME_FRAME_SIZE sample of `scene` on `dev`, every traversal call
-    of it recorded: (accumulation on the CPU, [{"key": (first_hit, table
-    width, alpha-tested, rays), "rays": (o, d, t_min, t_max, active),
-    "out": results}], both on the CPU). With `inject` (the calls of another
-    run), the alpha-tested calls on the W32 table take that run's rays
-    instead of their own."""
+def recorded_frame(dev, any_hit_len, size, inject=None):
+    """One sample of C's alpha, spot-lit frame (SponzaAlpha-checker, path
+    length 3, max_any_hit_path_length `any_hit_len`) at `size` on `dev`,
+    every traversal call of it recorded: (seconds, accumulation on the
+    CPU, [{"key": (first_hit, table width, alpha-tested, rays), "rays":
+    (o, d, t_min, t_max, active), "out": results}], both on the CPU). With
+    `inject` (the calls of another run), the alpha-tested calls on the W32
+    table take that run's rays instead of their own."""
     from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
     from dxrpathtracer_tpu_torch.render import integrator as it
+    from dxrpathtracer_tpu_torch.tools.alpha_cases import sponza_alpha_checker
+    scene, preset = sponza_alpha_checker()
+    settings = AppSettings(current_scene=Scenes.Sponza, benchmark_mode=True,
+                           max_path_length=3,
+                           max_any_hit_path_length=any_hit_len)
+    t0 = time.time()
     calls = []
     originals = it.closest_hit, it.any_hit
 
@@ -1215,10 +1343,10 @@ def recorded_frame(scene, preset, settings, dev, inject=None):
     it.closest_hit = recording(originals[0], False)
     it.any_hit = recording(originals[1], True)
     try:
-        sess = RenderSession(settings, *SAME_FRAME_SIZE, device=dev,
-                             scene=scene, preset=preset)
+        sess = RenderSession(settings, *size, device=dev, scene=scene,
+                             preset=preset)
         sess.render_frame()
-        return sess.accum.cpu(), calls
+        return time.time() - t0, sess.accum.cpu(), calls
     finally:
         it.closest_hit, it.any_hit = originals
 
@@ -1263,25 +1391,36 @@ def call_differences(a, b, pixels):
 
 
 def phase_same_alpha_frame():
-    """The alpha, spot-lit frame at SAME_FRAME_SIZE on the card and on the
-    CPU: at max_any_hit_path_length 1 held at rel-RMSE <= 1e-4; at 2, the
-    witness that the gap between the routes enters through the depth-2
-    rays and not through the kernel."""
-    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
-    from dxrpathtracer_tpu_torch.tools.alpha_cases import sponza_alpha_checker
-    scene, preset = sponza_alpha_checker()
-    out = {}
-    runs = {}
+    """C: the alpha, spot-lit frame at SAME_FRAME_SIZE on the card now and
+    on the CPU in the workers: at max_any_hit_path_length 1 held at
+    rel-RMSE <= 1e-4; at 2, the witness that the gap between the routes
+    enters through the depth-2 rays and not through the kernel. Returns
+    the check, a function that waits for the CPU frames and returns the
+    readings."""
+    card, cpu = {}, {}
     for any_hit_len in (1, 2):
-        settings = AppSettings(current_scene=Scenes.Sponza,
-                               benchmark_mode=True, max_path_length=3,
-                               max_any_hit_path_length=any_hit_len)
-        for dev in (DEVICE, "cpu"):
-            t0 = time.time()
-            runs[any_hit_len, dev] = recorded_frame(scene, preset, settings,
-                                                    dev)
-            log(f"same alpha frame {SAME_FRAME_SIZE}, max_any_hit_path_"
-                f"length {any_hit_len}, on {dev}: {time.time() - t0:.2f} s")
+        card[any_hit_len] = recorded_frame(DEVICE, any_hit_len,
+                                           SAME_FRAME_SIZE)
+        log(f"same alpha frame {SAME_FRAME_SIZE}, max_any_hit_path_length "
+            f"{any_hit_len}, on {DEVICE}: {card[any_hit_len][0]:.2f} s")
+        cpu[any_hit_len] = cpu_submit(recorded_frame, "cpu", any_hit_len,
+                                      SAME_FRAME_SIZE)
+    # the CPU route given the card's rays for its alpha-tested W32 calls
+    # (the depth-2 closest, sun and spot rays)
+    given = cpu_submit(recorded_frame, "cpu", 2, SAME_FRAME_SIZE, card[2][2])
+    return lambda: same_alpha_frame_readings(card, cpu, given)
+
+
+def same_alpha_frame_readings(card_runs, cpu_jobs, given_job):
+    """C's readings, once the workers' CPU frames are in."""
+    runs = {}
+    for any_hit_len, job in cpu_jobs.items():
+        secs, img, calls = job.get()
+        log(f"same alpha frame {SAME_FRAME_SIZE}, max_any_hit_path_length "
+            f"{any_hit_len}, on cpu (a worker): {secs:.2f} s")
+        runs[any_hit_len, DEVICE] = card_runs[any_hit_len][1:]
+        runs[any_hit_len, "cpu"] = img, calls
+    out = {}
     got, ref = runs[1, DEVICE][0], runs[1, "cpu"][0]
     rel = rel_rmse(got, ref)
     exact = float((got == ref).float().mean())
@@ -1295,16 +1434,11 @@ def phase_same_alpha_frame():
     out["max_any_hit_1"] = {"rel_rmse": rel, "bit_equal_fraction": exact}
 
     # max_any_hit_path_length 2: the routes compared call by call, then the
-    # CPU route given the card's rays for its alpha-tested W32 calls (the
-    # depth-2 closest, sun and spot rays)
+    # CPU route given the card's rays for its alpha-tested W32 calls
     (card, card_calls), (cpu, cpu_calls) = runs[2, DEVICE], runs[2, "cpu"]
-    settings = AppSettings(current_scene=Scenes.Sponza, benchmark_mode=True,
-                           max_path_length=3, max_any_hit_path_length=2)
-    t0 = time.time()
-    given, _ = recorded_frame(scene, preset, settings, "cpu",
-                              inject=card_calls)
-    log(f"same alpha frame, max_any_hit_path_length 2, on cpu with the "
-        f"card's depth-2 rays: {time.time() - t0:.2f} s")
+    secs, given, _ = given_job.get()
+    log(f"same alpha frame, max_any_hit_path_length 2, on cpu (a worker) "
+        f"with the card's depth-2 rays: {secs:.2f} s")
     w, h = SAME_FRAME_SIZE
     calls, hit_masks = call_differences(card_calls, cpu_calls, w * h)
     for row in calls:
@@ -1769,40 +1903,67 @@ def raster_classes(sess):
     return out
 
 
-def phase_same_raster_frame():
-    """R4: SponzaAlpha-checker's raster frame at SAME_FRAME_SIZE on the card
-    and on the CPU, in the rays and pcf modes: rel-RMSE <= 1e-4, and, as
-    phase C does, every traversal call's rays and results recorded on both
-    routes: no result may differ where the rays are bit-equal."""
+RASTER_SAME_MODES = ("rays", "pcf")
+
+
+def raster_same_frame(dev, mode, size):
+    """R4's frame: SponzaAlpha-checker's raster frame in `mode` at `size`
+    on `dev` (cascade maps SAME_RASTER_MAP^2), every traversal call of it
+    recorded as recorded_frame records them: (seconds, image on the CPU,
+    calls)."""
     from dxrpathtracer_tpu_torch.app.session import RenderSession
     from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
     from dxrpathtracer_tpu_torch.tools.alpha_cases import sponza_alpha_checker
     scene, preset = sponza_alpha_checker()
+    t0 = time.time()
+    sess = RenderSession(AppSettings(current_scene=Scenes.Sponza), *size,
+                         device=dev, scene=scene, preset=preset)
+    record = []
+    with raster_calls(record):
+        img = sess.render_raster_frame(
+            shadow_mode=mode, shadow_map_size=SAME_RASTER_MAP).cpu()
+    calls = [{
+        "key": (fh, bvh.width, alpha is not None, rays[0].shape[0]),
+        "rays": [x.cpu() for x in rays],
+        "out": (res if fh else torch.stack(
+            [res.t, res.tri_id.view(torch.float32), res.u, res.v])).cpu()}
+        for fh, bvh, rays, alpha, res in record]
+    return time.time() - t0, img, calls
+
+
+def same_raster_cpu_frames():
+    """R4's CPU frames, submitted to the workers (the longest of the run's
+    CPU frames: they start well before R4's card frames)."""
+    return {mode: cpu_submit(raster_same_frame, "cpu", mode, SAME_FRAME_SIZE)
+            for mode in RASTER_SAME_MODES}
+
+
+def phase_same_raster_frame(cpu_jobs):
+    """R4: SponzaAlpha-checker's raster frame at SAME_FRAME_SIZE on the card
+    now and on the CPU in the workers (`cpu_jobs`, same_raster_cpu_frames),
+    in the rays and pcf modes: rel-RMSE <= 1e-4, and, as phase C does,
+    every traversal call's rays and results recorded on both routes: no
+    result may differ where the rays are bit-equal. Returns the check, a
+    function that waits for the CPU frames and returns the readings."""
+    card = {}
+    for mode in RASTER_SAME_MODES:
+        card[mode] = raster_same_frame(DEVICE, mode, SAME_FRAME_SIZE)
+        log(f"same raster frame {SAME_FRAME_SIZE} {mode} on {DEVICE}: "
+            f"{card[mode][0]:.2f} s")
+    return lambda: same_raster_frame_readings(card, cpu_jobs)
+
+
+def same_raster_frame_readings(card, cpu_jobs):
+    """R4's readings, once the workers' CPU frames are in."""
     out = {}
-    for mode in ("rays", "pcf"):
-        imgs, calls = {}, {}
-        for dev in (DEVICE, "cpu"):
-            t0 = time.time()
-            sess = RenderSession(AppSettings(current_scene=Scenes.Sponza),
-                                 *SAME_FRAME_SIZE, device=dev, scene=scene,
-                                 preset=preset)
-            record = []
-            with raster_calls(record):
-                imgs[dev] = sess.render_raster_frame(
-                    shadow_mode=mode, shadow_map_size=SAME_RASTER_MAP).cpu()
-            calls[dev] = [{
-                "key": (fh, bvh.width, alpha is not None, rays[0].shape[0]),
-                "rays": [x.cpu() for x in rays],
-                "out": (res if fh else torch.stack(
-                    [res.t, res.tri_id.view(torch.float32), res.u,
-                     res.v])).cpu()}
-                for fh, bvh, rays, alpha, res in record]
-            log(f"same raster frame {SAME_FRAME_SIZE} {mode} on {dev}: "
-                f"{time.time() - t0:.2f} s")
-        got, ref = imgs[DEVICE], imgs["cpu"]
+    for mode in RASTER_SAME_MODES:
+        secs, ref, ref_calls = cpu_jobs[mode].get()
+        log(f"same raster frame {SAME_FRAME_SIZE} {mode} on cpu (a worker): "
+            f"{secs:.2f} s")
+        _, got, got_calls = card[mode]
         rel = rel_rmse(got, ref)
         exact = float((got == ref).float().mean())
-        rows, _ = call_differences(calls[DEVICE], calls["cpu"], 1)
+        rows, _ = call_differences(got_calls, ref_calls, 1)
         for row in rows:
             log(f"  {mode} card vs cpu " + ", ".join(
                 f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
@@ -2788,7 +2949,8 @@ def phase_interactive(smi):
     """Phase I: I1-I8. Returns the results and the kernel launches of the
     viewer's runs (I1-I3)."""
     t0 = time.time()
-    res, launches = phase_viewer(smi)
+    with cpu_workers_paused():
+        res, launches = phase_viewer(smi)
     torch.cuda.empty_cache()
     res["I4"] = phase_viewer_same()
     res["I5"] = phase_viewer_checkpoint(smi)
@@ -4068,6 +4230,409 @@ def phase_seeded_routes(frame_sess, smi):
     return out, runs
 
 
+# ---------------------------------------------------------------------------
+# K: the split alpha route (opaque-only and K-candidate packet walks, the
+# candidates' resolution, the masked raster bins) and the load-time alpha
+# subdivision
+# ---------------------------------------------------------------------------
+
+K_FRAMES = 10            # K: frames after the first, per route
+K_SAME_SIZE = (256, 128)  # K: card vs CPU, a packet-tileable size
+CAND_BYTES = 16          # a candidate slot written: t, tri, u, v
+SPLIT_KERNELS = ("packet_closest_opaque", "packet_any_opaque",
+                 "packet_candidates")
+
+
+def split_calls(sess):
+    """One sample of `sess` under DXRPT_SPLIT_ALPHA=1 at
+    max_any_hit_path_length 1, the integrator's calls of the packet walks
+    recorded: [(function name, table, rays, keywords)]."""
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    names = ("packet_closest_hit", "packet_any_hit_rec",
+             "packet_closest_hit_alpha")
+    originals = {n: getattr(it, n) for n in names}
+    calls = []
+
+    def wrap(name):
+        def call(bvh, *rays, **kw):
+            calls.append((name, bvh, tuple(
+                x.clone() if isinstance(x, torch.Tensor) else x
+                for x in rays), kw))
+            return originals[name](bvh, *rays, **kw)
+        return call
+
+    for n in names:
+        setattr(it, n, wrap(n))
+    try:
+        with env_var("DXRPT_SPLIT_ALPHA", "1"):
+            sess.settings = sess.settings.replace(max_any_hit_path_length=1)
+            sess.reset_accumulation()
+            sess.render_frame()
+            sync()
+    finally:
+        for n, f in originals.items():
+            setattr(it, n, f)
+    return calls
+
+
+def split_mismatches(got, ref, k):
+    """Lanes (or candidate slots) whose t, u, v, tri id, or overflow bit
+    differ between two results of the same mode, and the largest |error|
+    of t, u and v where both hit."""
+    rec_g, rec_r = (got[0], ref[0]) if k else (got, ref)
+    mism = hit_bits_differ(rec_g, rec_r)
+    err = hit_abs_err((rec_g.t, rec_g.u, rec_g.v),
+                      (rec_r.t, rec_r.u, rec_r.v), rec_g.hit & rec_r.hit)
+    if k:
+        cg, cr = got[1], ref[1]
+        mism += sum(bits_differ(cg[f], cr[f]) for f in ("t", "u", "v"))
+        mism += int((cg["tri"] != cr["tri"]).sum())
+        mism += int((cg["overflow"] != cr["overflow"]).sum())
+        both = (cg["tri"] >= 0) & (cr["tri"] >= 0)
+        err = max(err, hit_abs_err((cg["t"], cg["u"], cg["v"]),
+                                   (cr["t"], cr["u"], cr["v"]), both))
+    return mism, err
+
+
+def split_row(name, bvh, rays, first_hit, k, per_ray=None, phase="K"):
+    """A split-route class: the opaque-only (k 0) or K-candidate kernel
+    against its plain twin on the card, 0 lanes that differ; kernel and
+    plain ms, the bound from the plain walk's counts, the walk's shape;
+    `per_ray` (a function) times the default route's per-ray walk with the
+    alpha test on the same rays."""
+    from dxrpathtracer_tpu_torch.accel import packet
+    lanes = packet._rays(bvh, *rays)
+    n = lanes[0].shape[0]
+    stats = {}
+    ref = packet.packet_traverse_plain(bvh, *lanes, first_hit, stats,
+                                       exclude_alpha=not k, k_cands=k)
+    got = packet._launch_alpha_kernel(bvh, *lanes, first_hit, k)
+    mism, err = split_mismatches(got, ref, k)
+    rec = got[0] if k else got
+    extra = {"rays": n, "active": int(lanes[5].sum()),
+             "hits": int(rec.hit.sum()),
+             "internal_visits": stats["internal"],
+             "leaf_visits": stats["leaf"], "slot_tests": stats["slot_tests"],
+             "triangle_tests": stats["tri_tests"],
+             "rows": int(stats["touched"].sum()),
+             "mismatches_vs_plain": mism, "max_abs_err": err}
+    if k:
+        c = got[1]
+        full = c["tri"][:, -1] >= 0
+        extra.update(k=k, candidates=int((c["tri"] >= 0).sum()),
+                     full_buffers=int(full.sum()),
+                     overflow=int(c["overflow"].sum()))
+    if per_ray is not None:
+        per_ray()
+        extra["per_ray_alpha_walk_ms"] = cuda_ms(per_ray, repeat=3)[0]
+    nbytes = (n * (RAY_IN_BYTES + HIT_BYTES + (k * CAND_BYTES + 1 if k
+                                                else 0))
+              + extra["rows"] * ROW_BYTES)
+    ops = stats["slot_tests"] * SLAB_OPS + stats["tri_tests"] * MT_OPS
+    row = engine_row(
+        name, lambda: packet._launch_alpha_kernel(bvh, *lanes, first_hit, k),
+        lambda: packet.packet_traverse_plain(bvh, *lanes, first_hit,
+                                             exclude_alpha=not k, k_cands=k),
+        nbytes, ops, extra, phase=phase)
+    if mism:
+        raise SystemExit(f"chip_smoke: K {name}: the kernel differs from "
+                         f"its plain twin on {mism} lanes: {row}")
+    return row
+
+
+def k_classes(sess):
+    """K's 1080p classes: one split-route sample recorded; each opaque-only
+    and K-candidate call (K = 8, and K = 4 on the closest rays' candidate
+    call) held against its plain twin, with the per-ray alpha walk on the
+    same rays."""
+    from dxrpathtracer_tpu_torch.accel import traverse
+    from dxrpathtracer_tpu_torch.render.integrator import _make_alpha_test
+    calls = split_calls(sess)
+    want = [("packet_closest_hit", True), ("packet_closest_hit_alpha", 8),
+            ("packet_any_hit_rec", True), ("packet_closest_hit_alpha", 8)]
+    got = [(n, kw.get("exclude_alpha", kw.get("k_cands")))
+           for n, _, _, kw in calls]
+    if got != want:
+        raise SystemExit(f"chip_smoke: K: the split route's calls {got}, "
+                         f"want {want}")
+    alpha = _make_alpha_test(sess.scene, sess.settings)
+    (_, w8, closest, _), (_, ab, cand, _), (_, _, sun, _), \
+        (_, _, sun_cand, _) = calls
+    rows = {
+        "d1_opaque_closest": split_row(
+            "d1 opaque-only closest (W8)", w8, closest, False, 0,
+            lambda: traverse.closest_hit(w8, *closest, alpha=alpha)),
+        "d1_candidates_k8": split_row(
+            "d1 candidates K=8 (alpha table)", ab, cand, False, 8,
+            lambda: traverse.closest_hit(w8, *cand, alpha=alpha)),
+        "d1_candidates_k4": split_row(
+            "d1 candidates K=4 (alpha table)", ab, cand, False, 4),
+        "d1_sun_opaque_any": split_row(
+            "d1 sun opaque-only any hit (W8)", w8, sun, True, 0,
+            lambda: traverse.any_hit(w8, *sun, alpha=alpha)),
+        "d1_sun_candidates_k8": split_row(
+            "d1 sun candidates K=8 (alpha table)", ab, sun_cand, False, 8)}
+    # the whole split closest hit (both walks and the taps) against the
+    # per-ray alpha walk on the camera rays
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    from dxrpathtracer_tpu_torch.accel import packet
+    split = lambda: it._split_alpha_closest(  # noqa: E731
+        lambda *r: packet.packet_closest_hit(w8, *r, exclude_alpha=True),
+        lambda *r: packet.packet_closest_hit_alpha(ab, *r, k_cands=8),
+        alpha, *closest)
+    split()
+    rows["d1_split_closest_total_ms"] = cuda_ms(split, repeat=3)[0]
+    log(f"K d1 split closest hit (both walks, the taps): "
+        f"{rows['d1_split_closest_total_ms']:.4f} ms against the per-ray "
+        f"alpha walk's {rows['d1_opaque_closest']['per_ray_alpha_walk_ms']:.4f}"
+        f" ms on the same rays")
+    for name in ("d1_candidates_k8", "d1_candidates_k4"):
+        if rows[name]["full_buffers"] == 0 or rows[name]["candidates"] == 0:
+            raise SystemExit(f"chip_smoke: K {name}: no full buffer")
+    return rows
+
+
+def k_edge_cases(dev):
+    """The K-candidate cases of tools/traverse_cases.py, each kernel
+    against its plain twin: the opaque-only walks (closest and any) on the
+    scene's W8 table and the K-candidate walk on its alpha table (leaf 2,
+    or 12 for "overflow"), 0 lanes that differ; each case must reach what
+    it is made for."""
+    import numpy as np
+
+    from dxrpathtracer_tpu_torch.accel.bvh import (build_alpha_bvh_for_scene,
+                                                   build_bvh_for_scene)
+    from dxrpathtracer_tpu_torch.tools import traverse_cases as tc
+    scene = tc.alpha_case_scene(*tc.kcand_case_meshes())
+    w8 = build_bvh_for_scene(scene, width=8, flag_alpha=True).to(dev)
+    tabs = {leaf: build_alpha_bvh_for_scene(scene, leaf_size=leaf).to(dev)
+            for leaf in (2, 12)}
+    rows = {}
+    for name, (rays, leaf, k) in tc.kcand_cases().items():
+        r = tuple(torch.from_numpy(np.ascontiguousarray(rays[f])).to(dev)
+                  for f in tc.RAY_FIELDS)
+        rows[f"{name} opaque closest"] = split_row(
+            f"edge {name} opaque closest", w8, r, False, 0, phase="K edge")
+        rows[f"{name} opaque any"] = split_row(
+            f"edge {name} opaque any", w8, r, True, 0, phase="K edge")
+        row = rows[f"{name} K={k}"] = split_row(
+            f"edge {name} leaf {leaf} K={k}", tabs[leaf], r, False, k,
+            phase="K edge")
+        reach = {"overflow": row["overflow"] > 0,
+                 "all_rejected": row["full_buffers"] > 0,
+                 "equal_t": row["candidates"] > row["active"],
+                 "inactive": row["active"] == row["rays"] - 128,
+                 "k1": row["full_buffers"] > 0}[name]
+        if not reach or (name != "overflow" and row["overflow"]):
+            raise SystemExit(f"chip_smoke: K edge {name} does not reach "
+                             f"what it is made for: {row}")
+    return rows
+
+
+def k_route(label, sess, env, any_hit, base_img, smi):
+    """A split route's frames on `sess` (engine_run: a first frame and
+    K_FRAMES more) under the environment `env`; its image against the
+    default alpha route's (None for the default itself)."""
+    with contextlib.ExitStack() as stack:
+        for k, v in env.items():
+            stack.enter_context(env_var(k, v))
+        row, img = engine_run(label, sess, sess.settings,
+                              {"max_any_hit_path_length": any_hit}, smi,
+                              frames=K_FRAMES, phase="K")
+    if base_img is not None:
+        row["rel_rmse_vs_default"] = rel_rmse(img, base_img)
+        row["pixels_differ_vs_default"] = int(
+            (img != base_img).any(dim=-1).sum())
+        log(f"K {label}: image vs the default alpha route rel RMSE "
+            f"{row['rel_rmse_vs_default']:.3e}, "
+            f"{row['pixels_differ_vs_default']} pixels differ [{smi}]")
+    return row, img
+
+
+def k_same_frame(dev, scene, env, any_hit, size):
+    """One frame of a K route at `size` on `dev`: SponzaAlpha-checker (or
+    `scene`, a (scene, preset) pair), path length 3, under the environment
+    `env`, the launch counts set to 0 before it: (seconds, image on the
+    CPU, the launches, the candidates the resolution tapped, whether the
+    session's raster bins hold only opaque triangles (None without
+    bins))."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    from dxrpathtracer_tpu_torch.tools.alpha_cases import sponza_alpha_checker
+    scene, preset = scene or sponza_alpha_checker()
+    resolve, tapped = it._resolve_candidates, []
+
+    def counting(rec, cands, accept):
+        tapped.append(int(((cands["tri"] >= 0)
+                           & (cands["t"] < rec.t[:, None])).sum()))
+        return resolve(rec, cands, accept)
+
+    t0 = time.time()
+    it._resolve_candidates = counting
+    try:
+        with contextlib.ExitStack() as stack:
+            for k, v in env.items():
+                stack.enter_context(env_var(k, v))
+            sess = RenderSession(
+                AppSettings(current_scene=Scenes.Sponza, benchmark_mode=True,
+                            max_path_length=3,
+                            max_any_hit_path_length=any_hit),
+                *size, device=dev, scene=scene, preset=preset)
+            reset_launches()
+            sess.render_frame()
+            img = sess.accum.cpu()
+            launches = read_launches()
+    finally:
+        it._resolve_candidates = resolve
+    bins = sess.raster_bins
+    return (time.time() - t0, img, launches, sum(tapped),
+            None if bins is None else bool(bins.opaque_only))
+
+
+# K's card-vs-CPU routes: (environment, max_any_hit_path_length, the
+# subdivided scene's, the split kernels' launches in one frame:
+# packet_closest_opaque, packet_any_opaque, packet_candidates)
+K_SAME_ROUTES = {
+    "split_3": ({"DXRPT_SPLIT_ALPHA": "1"}, 3, False, (1, 1, 2)),
+    "split_raster_1": ({"DXRPT_SPLIT_ALPHA": "1",
+                        "DXRPT_RASTER_MIN_PIXELS": "1"}, 1, False, (0, 1, 2)),
+    "alpha_split_1": ({}, 1, True, (0, 0, 0))}
+
+
+def k_same(split_scene):
+    """Each K route's frame at K_SAME_SIZE on the card now and on the CPU
+    (the plain twins) in the workers; `split_scene` is the subdivided
+    (scene, preset). Returns the check, a function that waits for the CPU
+    frames and holds each route at rel-RMSE <= 1e-4, the split kernels'
+    launches, candidates tapped and masked bins as the route wants."""
+    card, cpu = {}, {}
+    for label, (env, any_hit, subdivided, _) in K_SAME_ROUTES.items():
+        scene = split_scene if subdivided else None
+        cpu[label] = cpu_submit(k_same_frame, "cpu", scene, env, any_hit,
+                                K_SAME_SIZE)
+        card[label] = k_same_frame(DEVICE, scene, env, any_hit, K_SAME_SIZE)
+        log(f"K same {label} {K_SAME_SIZE} on {DEVICE}: "
+            f"{card[label][0]:.2f} s")
+    return lambda: k_same_readings(card, cpu)
+
+
+def k_same_readings(card, cpu_jobs):
+    """K's card-vs-CPU readings, once the workers' CPU frames are in."""
+    out = {}
+    for label, (env, _, _, want) in K_SAME_ROUTES.items():
+        secs, ref, ref_launches, ref_tapped, ref_masked = cpu_jobs[label].get()
+        _, got, launches, tapped, masked = card[label]
+        log(f"K same {label} {K_SAME_SIZE} on cpu (a worker): {secs:.2f} s")
+        split = tuple(launches[k] for k in SPLIT_KERNELS)
+        split_cpu = tuple(ref_launches[k] for k in SPLIT_KERNELS)
+        rel = rel_rmse(got, ref)
+        out[label] = {"rel_rmse": rel, "bit_equal_fraction": float(
+            (got == ref).float().mean()), "split_launches": split,
+            "candidates_tapped": tapped, "candidates_tapped_cpu": ref_tapped,
+            "masked_bins": masked, "masked_bins_cpu": ref_masked}
+        log(f"K same {label}: rel RMSE cuda (kernels) vs cpu (plain twins) "
+            f"{rel:.3e}, {out[label]['bit_equal_fraction']:.4f} of values "
+            f"bit-equal; split launches {split} on the card, {split_cpu} "
+            f"on the CPU; candidates tapped {tapped} and {ref_tapped}; "
+            f"bins masked {masked} and {ref_masked}")
+        split_route = "DXRPT_SPLIT_ALPHA" in env
+        masked_want = True if "DXRPT_RASTER_MIN_PIXELS" in env else None
+        if not (rel <= 1e-4 and bool(ref.isfinite().all())
+                and float(ref.abs().max()) > 0 and split == want
+                and not any(split_cpu) and (tapped > 0) == split_route
+                and (ref_tapped > 0) == split_route
+                and masked == masked_want and ref_masked == masked_want):
+            raise SystemExit(f"chip_smoke: K same {label}: {out[label]}, "
+                             f"want split launches {want}")
+    return out
+
+
+def phase_split_alpha(sess, smi):
+    """K: the split alpha route on SponzaAlpha-checker at 1080p, path length
+    3 (`sess`, phase_alpha's session): its classes kernel against plain,
+    the edge cases, the routes' frames beside the default alpha route's;
+    its card-vs-CPU check (k_same) follows. Returns (results, the routes'
+    launches, the subdivided (scene, preset))."""
+    from dxrpathtracer_tpu_torch.app.session import RenderSession
+    from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes
+    from dxrpathtracer_tpu_torch.scene import alphasplit
+    from dxrpathtracer_tpu_torch.tools import alpha_cases
+    t0 = time.time()
+    out = {"alpha_table": {"rows": sess.bvh_alpha.num_rows,
+                           "leaf_size": sess.bvh_alpha.leaf_size}}
+    log(f"K: the alpha-only table {sess.bvh_alpha.num_rows} rows, leaf "
+        f"{sess.bvh_alpha.leaf_size}")
+    out["classes"] = k_classes(sess)
+    out["edge_cases"] = k_edge_cases(sess.device)
+    runs, launches = {}, []
+    split = {"DXRPT_SPLIT_ALPHA": "1"}
+    for any_hit in (1, 3):
+        runs[f"default_{any_hit}"], base = k_route(
+            f"default alpha route, max_any_hit {any_hit}", sess, {},
+            any_hit, None, smi)
+        runs[f"split_{any_hit}"], _ = k_route(
+            f"split alpha, max_any_hit {any_hit}", sess, split, any_hit,
+            base, smi)
+        if any_hit == 1:
+            runs["split_raster_1"], _ = k_route(
+                "split alpha + masked bins, max_any_hit 1", sess,
+                {**split, "DXRPT_RASTER_MIN_PIXELS": "1"}, 1, base, smi)
+            bins = sess.raster_bins
+            if bins is None or not bins.opaque_only:
+                raise SystemExit("chip_smoke: K: the split route's raster "
+                                 "bins are not masked")
+            runs["split_raster_1"]["masked_bins_pairs"] = bins.pairs
+            base_1 = base
+    for name in ("split_1", "split_3", "split_raster_1"):
+        lp = runs[name]["launches_per_frame"]
+        if not (lp["packet_closest_opaque"] == (0 if "raster" in name else 1)
+                and lp["packet_any_opaque"] == 1
+                and lp["packet_candidates"] == 2):
+            raise SystemExit(f"chip_smoke: K {name}: launches per frame "
+                             f"{lp}")
+        launches.append(runs[name]["kernel_launches"])
+
+    # the load-time subdivision: its own scene and session
+    recorded = []
+    split_fn = alphasplit.split_alpha_meshes
+
+    def record(*a, **kw):
+        res = split_fn(*a, **kw)
+        recorded.append(res[2])
+        return res
+
+    alphasplit.split_alpha_meshes = record
+    try:
+        with env_var("DXRPT_ALPHA_SPLIT", "1"):
+            t1 = time.time()
+            scene, preset = alpha_cases.sponza_alpha_checker()
+            build_s = time.time() - t1
+    finally:
+        alphasplit.split_alpha_meshes = split_fn
+    asess = RenderSession(AppSettings(current_scene=Scenes.Sponza,
+                                      benchmark_mode=True, max_path_length=3),
+                          *FRAME_SIZE, device=DEVICE, scene=scene,
+                          preset=preset)
+    stats = recorded[0]
+    out["alpha_split"] = {"stats": stats, "scene_build_s": build_s,
+                          "triangles": scene.num_triangles,
+                          "alpha_table_rows": (asess.bvh_alpha.num_rows
+                                               if asess.bvh_alpha else 0)}
+    log(f"K alpha split (level 4): {stats}, scene {scene.num_triangles} "
+        f"triangles (built in {build_s:.2f} s), W8 {asess.bvh.num_rows} rows")
+    runs["alpha_split_1"], _ = k_route(
+        "load-time alpha split, max_any_hit 1", asess, {}, 1, base_1, smi)
+    launches.append(runs["alpha_split_1"]["kernel_launches"])
+    out["runs"] = runs
+    del asess
+    torch.cuda.empty_cache()
+    out["phase_k_s"] = time.time() - t0
+    log(f"phase K: {out['phase_k_s']:.1f} s (its card-vs-CPU check, "
+        f"k_same, follows)")
+    return out, launches, (scene, preset)
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -4083,10 +4648,17 @@ def main():
     del box_sess
     torch.cuda.empty_cache()
     seeded, seeded_launches = phase_seeded_routes(frame_sess, smi)
-    alpha, (alpha_classes, _, alpha_trav, _, alpha_inst), alpha_launches = \
-        phase_alpha(smi)
+    alpha, (alpha_classes, _, alpha_trav, _, alpha_inst), alpha_launches, \
+        alpha_sess = phase_alpha(smi)
+    split_alpha, split_launches, split_scene = phase_split_alpha(alpha_sess,
+                                                                smi)
+    del alpha_sess
     torch.cuda.empty_cache()
-    same_alpha = phase_same_alpha_frame()
+    # from here on the workers render the card-vs-CPU checks' CPU frames,
+    # R4's (the longest) first; each check reads its frames at the end
+    raster_cpu = same_raster_cpu_frames()
+    k_check = k_same(split_scene)
+    same_alpha_check = phase_same_alpha_frame()
     render = phase_render_command(smi)
     torch.cuda.empty_cache()
     baker, bake, bake_launches = phase_bake(smi)
@@ -4099,14 +4671,15 @@ def main():
     del frame_sess, baker
     torch.cuda.empty_cache()
 
-    raster_opaque, r1_launches = phase_raster_opaque(smi)
-    torch.cuda.empty_cache()
-    raster_sess, raster_alpha, r2_launches = phase_raster_alpha(smi)
+    with cpu_workers_paused():
+        raster_opaque, r1_launches = phase_raster_opaque(smi)
+        torch.cuda.empty_cache()
+        raster_sess, raster_alpha, r2_launches = phase_raster_alpha(smi)
     raster_rows, _, raster_trav, _, _ = phase_kernel_vs_plain(
         raster_sess, "R3 raster ray classes", raster_classes(raster_sess))
     del raster_sess
     torch.cuda.empty_cache()
-    same_raster = phase_same_raster_frame()
+    same_raster_check = phase_same_raster_frame(raster_cpu)
     raster_commands = phase_raster_commands(smi)
     torch.cuda.empty_cache()
     fbx_import, (fbx_classes, _, fbx_trav, _, fbx_inst), fbx_launches = \
@@ -4116,13 +4689,21 @@ def main():
         phase_animate(smi)
     torch.cuda.empty_cache()
     viewer, viewer_launches = phase_interactive(smi)
+    t0 = time.time()
+    same_alpha = same_alpha_check()
+    same_raster = same_raster_check()
+    split_alpha["same"] = k_check()
+    stop_cpu_workers()
+    log(f"card-vs-CPU checks of C, R4 and K: waited {time.time() - t0:.1f} s "
+        f"for the workers' CPU frames")
 
     # each traversal instantiation: its launches on the main paths (the
     # opaque frame, the alpha frames, the bake, the raster frames, the
     # imported frame, the animation, the viewer) and its ray classes' sums
     runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
             *r2_launches, fbx_launches, anim_launches, viewer_launches,
-            *engine_launches, *bake_ab_launches, *seeded_launches]
+            *engine_launches, *bake_ab_launches, *seeded_launches,
+            *split_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -4159,9 +4740,14 @@ def main():
     s_class = {"history_revalidate": ("history", "d1_closest"),
                "proxy_closest": ("proxy_seed", "d2_closest"),
                "raster_closest_hit": ("raster", "d1_camera")}
+    k_class = {"packet_closest_opaque": "d1_opaque_closest",
+               "packet_any_opaque": "d1_sun_opaque_any",
+               "packet_candidates": "d1_candidates_k8"}
     for name, (source, replaces) in ENGINE_KERNELS.items():
         launches = sum(r[name] for r in runs)
-        if name in s_class:
+        if name in k_class:
+            row = split_alpha["classes"][k_class[name]]
+        elif name in s_class:
             route, cls = s_class[name]
             row = seeded[route]["classes"][cls]
         else:
@@ -4203,7 +4789,8 @@ def main():
                    "engine_bake_classes": engine_bake, "engine_ab": engine_ab,
                    "engine_bake_ab": bake_ab,
                    "engine_same_frame": engine_same,
-                   "seeded_routes": seeded, **kernels}, f,
+                   "seeded_routes": seeded, "split_alpha": split_alpha,
+                   **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -4212,4 +4799,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_cpu_workers()

@@ -55,6 +55,7 @@ class FlatBVH:
     root_code: int        # >= 0 internal row; < 0 ~leaf row (single leaf)
     width: int = WIDTH    # 8 (f32 boxes) or 32 (bf16 boxes)
     has_alpha_flags: bool = False  # leaf tri ids carry ALPHA_TID_BIT
+    leaf_size: int = LEAF_SIZE  # the most triangles a leaf holds
 
     def to(self, device) -> "FlatBVH":
         return dataclasses.replace(self, table=self.table.to(device))
@@ -236,29 +237,38 @@ def leaf_rows(table: np.ndarray, root_code: int, width: int) -> np.ndarray:
 
 
 def flag_alpha_tris(table: np.ndarray, root_code: int, width: int,
-                    tri_alpha: np.ndarray) -> np.ndarray:
-    """ORs ALPHA_TID_BIT into the leaf tri ids of the triangles whose
-    material is alpha-tested (`flag_alpha_tris` of the JAX package), in
-    place; empty slots (-1) stay."""
+                    tri_alpha: np.ndarray | None,
+                    tri_ids: np.ndarray | None = None) -> np.ndarray:
+    """The JAX package's `flag_alpha_tris`, in place: with `tri_ids`, first
+    remaps the leaves' local build indices to tri_ids[index] (a table over
+    a subset of a scene's triangles numbers them 0..n-1, shading needs the
+    scene's ids); with `tri_alpha` (indexed by the remapped ids), ORs
+    ALPHA_TID_BIT into the ids of alpha-tested triangles. Empty slots (-1)
+    stay."""
     rows = leaf_rows(table, root_code, width)
     ids = table[rows, 9 * LEAF_SIZE:10 * LEAF_SIZE].view(np.int32).copy()
     valid = ids >= 0
-    flag = np.zeros_like(valid)
-    flag[valid] = np.asarray(tri_alpha, bool)[ids[valid]]
-    ids[flag] |= ALPHA_TID_BIT
+    if tri_ids is not None:
+        ids[valid] = np.asarray(tri_ids, np.int32)[ids[valid]]
+    if tri_alpha is not None:
+        flag = np.zeros_like(valid)
+        flag[valid] = np.asarray(tri_alpha, bool)[ids[valid]]
+        ids[flag] |= ALPHA_TID_BIT
     table[rows, 9 * LEAF_SIZE:10 * LEAF_SIZE] = ids.view(np.float32)
     return table
 
 
 def build_bvh(v0, v1, v2, width: int = WIDTH,
               leaf_size: int = LEAF_SIZE, tri_alpha=None,
-              mode: str = "sah") -> FlatBVH:
+              mode: str = "sah", tri_ids=None) -> FlatBVH:
     """BVH over (T, 3) triangle vertices -> FlatBVH on the CPU. mode "sah"
     is the binned-SAH quality build (the reference's PREFER_FAST_TRACE
     driver build, W8 or W32); "morton" the fast build (PREFER_FAST_BUILD,
     W8 only), whose table the device build (accel/device_build.py) makes
     too. tri_alpha: (T,) bool, whose set triangles get ALPHA_TID_BIT in
-    their leaf ids (the table then has_alpha_flags), or None."""
+    their leaf ids (the table then has_alpha_flags), or None. tri_ids: the
+    scene's id of each of the T triangles, written into the leaves in place
+    of its index (tri_alpha is then indexed by those ids), or None."""
     if width not in (8, 32):
         raise ValueError(f"width must be 8 or 32, got {width}")
     if mode not in ("sah", "morton") or (mode == "morton" and width != WIDTH):
@@ -291,12 +301,13 @@ def build_bvh(v0, v1, v2, width: int = WIDTH,
         raise RuntimeError(f"native {mode} build failed (rows={rows}, "
                            f"rc={rc})")
     has_flags = tri_alpha is not None and bool(np.asarray(tri_alpha).any())
-    if has_flags:
-        flag_alpha_tris(table, int(root.value), width, tri_alpha)
+    if has_flags or tri_ids is not None:
+        flag_alpha_tris(table, int(root.value), width,
+                        tri_alpha if has_flags else None, tri_ids=tri_ids)
     return FlatBVH(table=torch.from_numpy(table), num_rows=int(rows),
                    max_depth=int(depth.value) + 2,
                    root_code=int(root.value), width=width,
-                   has_alpha_flags=has_flags)
+                   has_alpha_flags=has_flags, leaf_size=int(leaf_size))
 
 
 def build_bvh_for_scene(scene, width: int = WIDTH,
@@ -313,3 +324,26 @@ def build_bvh_for_scene(scene, width: int = WIDTH,
         tri_alpha = has_op[scene.tri_material.cpu().numpy()]
     return build_bvh(pos[tri[:, 0]], pos[tri[:, 1]], pos[tri[:, 2]],
                      width=width, tri_alpha=tri_alpha)
+
+
+ALPHA_LEAF_SIZE = 2  # the alpha-only table's leaves (packet.LEAF_EXTRACT)
+
+
+def build_alpha_bvh_for_scene(scene, leaf_size: int = ALPHA_LEAF_SIZE
+                              ) -> FlatBVH | None:
+    """The split-alpha route's alpha-only table (on the CPU): a W8 SAH build
+    over just the triangles of opacity-mapped materials, leaf_size to a
+    leaf, their leaf ids the scene's and every one flagged (the JAX
+    session's `bvh_alpha`); None when the scene has no such triangle."""
+    if not scene.any_opacity:
+        return None
+    has_op = scene.has_opacity.cpu().numpy().astype(bool)
+    amask = has_op[scene.tri_material.cpu().numpy()]
+    if not amask.any():
+        return None
+    pos = scene.positions.cpu().numpy()
+    aidx = np.where(amask)[0].astype(np.int32)
+    atr = scene.tri_idx.cpu().numpy()[aidx]
+    return build_bvh(pos[atr[:, 0]], pos[atr[:, 1]], pos[atr[:, 2]],
+                     width=WIDTH, leaf_size=leaf_size, tri_alpha=amask,
+                     tri_ids=aidx)

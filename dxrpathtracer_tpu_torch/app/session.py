@@ -17,6 +17,11 @@ surface-hemisphere rays), and the sun-space grid is built on the host when
 the first path-traced sample for a sun direction needs it (raster frames
 never do) and again whenever the sun or the engine fields change.
 
+The alpha-only table of the split alpha route (`bvh_alpha`, the
+alpha-tested triangles two to a leaf) is built with the tables where the
+scene has alpha-tested triangles; the integrator uses it under
+DXRPT_SPLIT_ALPHA.
+
 Two more, off by default, read the JAX package's switches where it reads
 them: DXRPT_HISTORY at construction builds the triangle table and keeps a
 temporal history (two (H*W,) int32 tensors of triangle ids in the frame's
@@ -40,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from ..accel.bvh import build_bvh_for_scene
+from ..accel.bvh import build_alpha_bvh_for_scene, build_bvh_for_scene
 from ..accel.history import build_tri_table
 from ..accel.proxy import (CUT_C, CUT_MIN_CLEAR, PROXY_K, build_aabb_cut,
                            build_dense_proxy, probe_clear_fraction)
@@ -117,6 +122,11 @@ class RenderSession:
                                            flag_alpha=True).to(self.device)
             self.bvh_ray = build_bvh_for_scene(scene,
                                                width=32).to(self.device)
+            # the split alpha route's alpha-only table (two triangles a
+            # leaf), where the scene has alpha-tested triangles
+            self.bvh_alpha = build_alpha_bvh_for_scene(scene)
+            if self.bvh_alpha is not None:
+                self.bvh_alpha = self.bvh_alpha.to(self.device)
             self.proxy, self.cut, self.cut_clear_fraction = \
                 screens_for_scene(scene)
             if self.proxy is not None:
@@ -253,9 +263,11 @@ class RenderSession:
         None where they are not wanted (enable_sw_raster,
         enable_packet_traversal, a 128-pixel tile dividing the frame, at
         least RASTER_MIN_PIXELS pixels) or the geometry has moved. Built on
-        the host under the BuildRasterBins scope when the camera or the
-        frame size changed since the last build; `raster_build_s` keeps
-        its seconds."""
+        the host under the BuildRasterBins scope when the camera, the frame
+        size or the split alpha route's switch changed since the last
+        build; `raster_build_s` keeps its seconds. Under DXRPT_SPLIT_ALPHA
+        on a scene with an alpha-only table the bins are masked to its
+        opaque triangles (opaque_only)."""
         s = self.settings
         min_px = int(os.environ.get("DXRPT_RASTER_MIN_PIXELS",
                                     self.RASTER_MIN_PIXELS))
@@ -264,22 +276,30 @@ class RenderSession:
         want = (s.enable_sw_raster and s.enable_packet_traversal
                 and px >= min_px and dims is not None
                 and not self._geometry_moved)
-        key = ((self.camera.state_tuple(), self.width, self.height)
-               if want else None)
+        # under the split alpha route the bins of an alpha scene hold only
+        # its opaque triangles (the route's opaque-only step)
+        opaque_only = (bool(os.environ.get("DXRPT_SPLIT_ALPHA"))
+                       and self.bvh_alpha is not None)
+        key = ((self.camera.state_tuple(), self.width, self.height,
+                opaque_only) if want else None)
         if key != self._raster_key:
             self._raster_key = key
             self.raster_bins = None
             if want:
                 t0 = time.perf_counter()
+                host = self.scene_host
+                opaque = None
+                if opaque_only:
+                    opaque = ~host.has_opacity.numpy().astype(bool)[
+                        host.tri_material.numpy()]
                 with self.profiler.cpu_scope("BuildRasterBins"):
                     self.raster_bins = build_raster_bins(
-                        self.scene_host.positions.numpy(),
-                        self.scene_host.tri_idx.numpy(),
+                        host.positions.numpy(), host.tri_idx.numpy(),
                         np.asarray(self.camera.view_projection(),
                                    np.float64),
                         float(self.camera.near_clip), self.width,
-                        self.height, *dims, self._triangle_table()
-                    ).to(self.device)
+                        self.height, *dims, self._triangle_table(),
+                        opaque_tris=opaque).to(self.device)
                 self.raster_build_s = time.perf_counter() - t0
         return self.raster_bins
 
@@ -314,10 +334,11 @@ class RenderSession:
         device (the `animate` command's moving geometry, as the JAX package
         routes it); resets the accumulation. The sun-space grid, the dense
         proxy, the AABB cut, the history's triangle table (and so the
-        history) and the raster bins describe the geometry as it was, so
-        they are dropped and the history goes off (packets walk `bvh`)."""
+        history), the raster bins and the alpha-only table describe the
+        geometry as it was, so they are dropped, the history goes off
+        (packets walk `bvh`) and so does the split alpha route."""
         self.scene, self.bvh, self.bvh_ray = scene, bvh, bvh
-        self.proxy = self.cut = self.sun_grid = None
+        self.proxy = self.cut = self.sun_grid = self.bvh_alpha = None
         self.tri_table = self.raster_bins = None
         self._history_on = False
         self._sun_grid_key = self._raster_key = None
@@ -361,7 +382,8 @@ class RenderSession:
             self.scene, self.bvh, self.bvh_ray, self.sky_cube, self.settings,
             frame, self.width, self.height, self._accum,
             sun_grid=self.update_sun_grid(), proxy=self.proxy, cut=self.cut,
-            history=history, raster=self.update_raster())
+            history=history, raster=self.update_raster(),
+            alpha_bvh=self.bvh_alpha)
         if history is None:
             self._accum = out
         else:

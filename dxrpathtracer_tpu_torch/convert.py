@@ -13,7 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .accel.bvh import FlatBVH
+from .accel.bvh import LEAF_SIZE, FlatBVH
 from .accel.proxy import AABBCut, DenseProxy
 from .accel.sunspace import SunGrid
 from .render.integrator import (FrameConstants, _packet_tile_dims,
@@ -57,14 +57,18 @@ def scene_from_reference_arrays(arrays: dict[str, np.ndarray]) -> Scene:
 
 
 def bvh_from_numpy(table, num_rows: int, max_depth: int, root_code: int,
-                   width: int, has_alpha_flags: bool = False) -> FlatBVH:
-    """FlatBVH (CPU tensor) from a (rows, 128) f32 table and its constants."""
+                   width: int, has_alpha_flags: bool = False,
+                   leaf_size: int = LEAF_SIZE) -> FlatBVH:
+    """FlatBVH (CPU tensor) from a (rows, 128) f32 table and its constants
+    (the JAX FlatBVH's num_rows, max_depth, root_code, width,
+    has_alpha_flags and leaf_size)."""
     table = np.array(table, np.float32)  # a writable copy
     if table.shape != (num_rows, 128):
         raise ValueError(f"table shape {table.shape} != ({num_rows}, 128)")
     return FlatBVH(table=torch.from_numpy(table), num_rows=int(num_rows),
                    max_depth=int(max_depth), root_code=int(root_code),
-                   width=int(width), has_alpha_flags=bool(has_alpha_flags))
+                   width=int(width), has_alpha_flags=bool(has_alpha_flags),
+                   leaf_size=int(leaf_size))
 
 
 def sun_grid_from_reference(grid) -> SunGrid:

@@ -53,6 +53,24 @@
 //    shuffle: no local-memory stack frame.
 //  - An any-hit packet ends when no ray is left live, and a packet with no
 //    active ray ends at once.
+//
+// The split alpha route's two modes (render/integrator.py), for a table with
+// alpha flags (ALPHA_TID_BIT in the leaf ids). They replace
+// _packet_traverse's exclude_alpha (:234) and collect_alpha (:254-310).
+//  - Opaque-only (kExclude): a flagged triangle is skipped at the leaf
+//    (a warp-uniform branch), so it neither wins nor bounds a ray.
+//  - K candidates (kCand = K, a closest walk): a flagged hit is kept in the
+//    ray's sorted buffer of K (t, tri, u, v) candidates instead, and a full
+//    buffer bounds the ray at its last candidate's t. A leaf gives each ray
+//    its two nearest flagged hits (JAX's LEAF_EXTRACT = 2; the lowest slot
+//    on ties), each carried down the buffer by JAX's compare-and-swap
+//    chain, and a ray with a third in the leaf sets its overflow bit. The
+//    buffer is 128 rays x K x 4 words a warp (16 KiB at K = 8): it lives in
+//    shared memory, each lane's rays in their own columns (no bank
+//    conflict, no __syncwarp), and a block holds kCandWarps packets so that
+//    it stays under the static 48 KiB. The leaf runs ray by ray (each ray's
+//    two nearest in registers for one ray at a time) rather than slot by
+//    slot.
 // Measured on the H100 (PERF.md): masking instead of branching per
 // ray and the any-hit compaction each shortened the walk; persistent warps
 // taking packets from a counter, a register cap, and unrolling the leaf's
@@ -77,6 +95,8 @@ namespace {
 constexpr int kPacket = 128;      // rays per packet
 constexpr int kRays = kPacket / 32;  // rays per lane
 constexpr int kWarps = 4;         // packets (warps) per block
+constexpr int kCandWarps = 2;     // ... of the K-candidate walk
+constexpr int kMaxCands = 8;      // K = 1..8 are instantiated
 constexpr int kRecord = 128;      // f32 slots per record
 constexpr int kLeafSize = 12;     // triangles per leaf record
 constexpr int kWidth = 8;         // children per W8 internal record
@@ -110,8 +130,16 @@ __device__ __forceinline__ float from_ordered(int32_t i) {
     return __int_as_float(i ^ ((i >> 31) & 0x7FFFFFFF));
 }
 
-template <bool kFirstHit>
-__global__ void __launch_bounds__(kWarps * 32)
+// The K-candidate buffer of the block's warps: [warp][slot k][field][ray],
+// the fields t, tri (as bits), u and v.
+template <int kCand, int kW>
+__device__ __forceinline__ float* candidate_buffer() {
+    __shared__ float buf[kW][kCand * 4][kPacket];
+    return &buf[0][0][0];
+}
+
+template <bool kFirstHit, bool kExclude, int kCand>
+__global__ void __launch_bounds__((kCand > 0 ? kCandWarps : kWarps) * 32)
 packet_kernel(const float* __restrict__ table, int32_t done,
               int32_t root_code, int32_t stack_depth, int32_t max_iters,
               bool strip_alpha, const float* __restrict__ ray_o,
@@ -121,14 +149,19 @@ packet_kernel(const float* __restrict__ table, int32_t done,
               const float* __restrict__ t_max,
               const uint8_t* __restrict__ active, int64_t packets,
               float* __restrict__ out_t, int32_t* __restrict__ out_tri,
-              float* __restrict__ out_u, float* __restrict__ out_v) {
+              float* __restrict__ out_u, float* __restrict__ out_v,
+              float* __restrict__ cand_t, int32_t* __restrict__ cand_tri,
+              float* __restrict__ cand_u, float* __restrict__ cand_v,
+              uint8_t* __restrict__ overflow) {
     static_assert(kMaxStack == 64, "the stack holds two entries per lane");
+    static_assert(!(kFirstHit && kCand > 0), "candidates: closest walks");
+    constexpr int kW = kCand > 0 ? kCandWarps : kWarps;
     // each warp's record (double-buffered) and list of live ray ids
-    __shared__ float4 rec4[kWarps][2][kRecord / 4];
-    __shared__ int32_t live_ids[kWarps][kPacket];
+    __shared__ float4 rec4[kW][2][kRecord / 4];
+    __shared__ int32_t live_ids[kW][kPacket];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const int64_t packet = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+    const int64_t packet = static_cast<int64_t>(blockIdx.x) * kW + warp;
     if (packet >= packets) return;  // the whole warp
     const int64_t base = packet * kPacket;
 
@@ -165,6 +198,33 @@ packet_kernel(const float* __restrict__ table, int32_t done,
         load(r);
         live |= (active[base + id[r]] != 0 ? 1u : 0u) << r;
     }
+    // K candidates: slot k's field f of ray c at cand[(4 k + f) * 128 + c],
+    // empty (t 3e38, tri -1, u = v = 0) at first; kt[r] is the ray's last
+    // candidate's t once its buffer is full, else 3e38; bit r of ovf is
+    // its overflow bit
+    float* cand = nullptr;
+    float kt[kRays];
+    uint32_t ovf = 0;
+    if constexpr (kCand > 0) {
+        cand = candidate_buffer<kCand, kW>() + warp * kCand * 4 * kPacket;
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+            kt[r] = kBig;
+            for (int k = 0; k < kCand; ++k) {
+                float* c = cand + 4 * k * kPacket + 32 * r + lane;
+                c[0] = kBig;
+                c[kPacket] = __int_as_float(-1);
+                c[2 * kPacket] = 0.0f;
+                c[3 * kPacket] = 0.0f;
+            }
+        }
+    }
+    // the bound of ray r's tests: its best t, and with candidates the last
+    // candidate's t of a full buffer
+    auto bound = [&](int r) {
+        if constexpr (kCand > 0) return nan_min(bt[r], kt[r]);
+        return bt[r];
+    };
     // any hit: the live rays packed into the fewest rows, slot r of lane l
     // taking entry 32 r + l of the list of live ids (in their order)
     auto compact = [&]() {
@@ -257,7 +317,7 @@ packet_kernel(const float* __restrict__ table, int32_t done,
                         nan_max(nan_min(tz0, tz1), tmin[r]));
                     const float tf = nan_min(
                         nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
-                        nan_min(nan_max(tz0, tz1), bt[r]));
+                        nan_min(nan_max(tz0, tz1), bound(r)));
                     const bool hit = ((live >> r) & 1u) && tn <= tf;
                     lane_hits |= hit ? 1u << j : 0u;
                     lane_min[j] =
@@ -281,6 +341,99 @@ packet_kernel(const float* __restrict__ table, int32_t done,
             near_code = __float_as_int(rec[48 + near_slot]);
             any_child = near_key < kBig;
             rest_mask = hit_mask & ~(1u << near_slot);
+        } else if (kCand > 0 && live != 0) {
+            // ---- leaf, K candidates: ray by ray, each live ray tests the
+            // 12 triangles against its bound from before the leaf; the
+            // least unflagged t (ck) and the two least flagged hits (a0,
+            // a1; strict <: the lowest slot wins ties), then the flagged
+            // hits into the buffer, nearest first ----
+#pragma unroll
+            for (int r = 0; r < kRays; ++r) {
+                if (!((live >> r) & 1u)) continue;
+                const float pr = bound(r);
+                float ck = __int_as_float(0x7f800000);  // +inf
+                float a0t = ck, a1t = ck, a0u = 0.0f, a0v = 0.0f;
+                float a1u = 0.0f, a1v = 0.0f;
+                int32_t a0i = 0, a1i = 0, na = 0;
+#pragma unroll 1
+                for (int s = 0; s < kLeafSize; ++s) {
+                    int32_t tid = __float_as_int(rec[9 * kLeafSize + s]);
+                    if (tid < 0) continue;  // an empty slot (warp-uniform)
+                    const bool flagged = (tid & kAlphaTidBit) != 0;
+                    tid &= ~kAlphaTidBit;
+                    const float v0x = rec[s], v0y = rec[kLeafSize + s];
+                    const float v0z = rec[2 * kLeafSize + s];
+                    const float e1x = rec[3 * kLeafSize + s];
+                    const float e1y = rec[4 * kLeafSize + s];
+                    const float e1z = rec[5 * kLeafSize + s];
+                    const float e2x = rec[6 * kLeafSize + s];
+                    const float e2y = rec[7 * kLeafSize + s];
+                    const float e2z = rec[8 * kLeafSize + s];
+                    const float px = dy[r] * e2z - dz[r] * e2y;
+                    const float py = dz[r] * e2x - dx[r] * e2z;
+                    const float pz = dx[r] * e2y - dy[r] * e2x;
+                    const float det = e1x * px + e1y * py + e1z * pz;
+                    const bool det_ok = fabsf(det) > kEps;
+                    const float inv_det =
+                        det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
+                    const float sx = ox[r] - v0x;
+                    const float sy = oy[r] - v0y;
+                    const float sz = oz[r] - v0z;
+                    const float u = (sx * px + sy * py + sz * pz) * inv_det;
+                    const float qx = sy * e1z - sz * e1y;
+                    const float qy = sz * e1x - sx * e1z;
+                    const float qz = sx * e1y - sy * e1x;
+                    const float v =
+                        (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv_det;
+                    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+                    if (!(det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
+                          && t >= tmin[r] && t < pr && t < kBig))
+                        continue;
+                    if (flagged) {
+                        ++na;
+                        if (t < a0t) {
+                            a1t = a0t; a1i = a0i; a1u = a0u; a1v = a0v;
+                            a0t = t; a0i = tid; a0u = u + 0.0f;
+                            a0v = v + 0.0f;
+                        } else if (t < a1t) {
+                            a1t = t; a1i = tid; a1u = u + 0.0f;
+                            a1v = v + 0.0f;
+                        }
+                    } else if (t < ck) {
+                        ck = t;
+                        btri[r] = tid;
+                        bu[r] = u + 0.0f;
+                        bv[r] = v + 0.0f;
+                    }
+                }
+                if (ck < kBig) bt[r] = ck;
+                float* c = cand + 32 * r + lane;
+                // a candidate takes the first slot whose t it is strictly
+                // below; the occupant it displaces goes on down, and an
+                // empty slot's occupant ends the chain (JAX's take chain)
+                auto insert = [&](float ct, int32_t ci, float cu, float cv) {
+#pragma unroll
+                    for (int k = 0; k < kCand; ++k) {
+                        float* e = c + 4 * k * kPacket;
+                        const float st = e[0];
+                        if (!(ct < st)) continue;
+                        const int32_t si = __float_as_int(e[kPacket]);
+                        const float su = e[2 * kPacket];
+                        const float sv = e[3 * kPacket];
+                        e[0] = ct;
+                        e[kPacket] = __int_as_float(ci);
+                        e[2 * kPacket] = cu;
+                        e[3 * kPacket] = cv;
+                        if (si < 0) return;
+                        ct = st; ci = si; cu = su; cv = sv;
+                    }
+                };
+                if (na >= 1) insert(a0t, a0i, a0u, a0v);
+                if (na >= 2) insert(a1t, a1i, a1u, a1v);
+                if (na > 2) ovf |= 1u << r;
+                const float* last = c + 4 * (kCand - 1) * kPacket;
+                kt[r] = __float_as_int(last[kPacket]) >= 0 ? last[0] : kBig;
+            }
         } else if (live != 0) {
             // ---- leaf: each live ray tests the 12 triangles, each held
             // against its best t from before the leaf; ck is the least
@@ -300,6 +453,8 @@ packet_kernel(const float* __restrict__ table, int32_t done,
                 const float e2y = rec[7 * kLeafSize + s];
                 const float e2z = rec[8 * kLeafSize + s];
                 int32_t tid = __float_as_int(rec[9 * kLeafSize + s]);
+                // opaque-only: a flagged triangle is not tested
+                if (kExclude && tid >= 0 && (tid & kAlphaTidBit)) continue;
                 if (strip_alpha && tid >= 0) tid &= ~kAlphaTidBit;
                 if (tid < 0) continue;  // an empty slot (warp-uniform)
 #pragma unroll
@@ -405,23 +560,47 @@ packet_kernel(const float* __restrict__ table, int32_t done,
         out_tri[i] = btri[r];
         out_u[i] = bu[r];
         out_v[i] = bv[r];
+        if constexpr (kCand > 0) {
+            const float* c = cand + 32 * r + lane;
+            for (int k = 0; k < kCand; ++k) {
+                const float* e = c + 4 * k * kPacket;
+                cand_t[i * kCand + k] = e[0];
+                cand_tri[i * kCand + k] = __float_as_int(e[kPacket]);
+                cand_u[i * kCand + k] = e[2 * kPacket];
+                cand_v[i * kCand + k] = e[3 * kPacket];
+            }
+            overflow[i] = (ovf >> r) & 1u;
+        }
     }
 }
 
-template <bool kFirstHit>
+template <bool kFirstHit, bool kExclude, int kCand>
 cudaError_t launch(cudaStream_t stream, int64_t packets, const float* table,
                    int32_t done, int32_t root_code, int32_t stack_depth,
                    int32_t max_iters, bool strip_alpha, const float* o,
                    const float* d, const float* inv_d, const float* t_min,
                    const float* t_max, const uint8_t* active, float* out_t,
-                   int32_t* out_tri, float* out_u, float* out_v) {
-    const int64_t blocks = (packets + kWarps - 1) / kWarps;
-    packet_kernel<kFirstHit>
-        <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
+                   int32_t* out_tri, float* out_u, float* out_v,
+                   float* cand_t = nullptr, int32_t* cand_tri = nullptr,
+                   float* cand_u = nullptr, float* cand_v = nullptr,
+                   uint8_t* overflow = nullptr) {
+    constexpr int kW = kCand > 0 ? kCandWarps : kWarps;
+    const int64_t blocks = (packets + kW - 1) / kW;
+    packet_kernel<kFirstHit, kExclude, kCand>
+        <<<static_cast<unsigned>(blocks), kW * 32, 0, stream>>>(
             table, done, root_code, stack_depth, max_iters, strip_alpha, o, d,
             inv_d, t_min, t_max, active, packets, out_t, out_tri, out_u,
-            out_v);
+            out_v, cand_t, cand_tri, cand_u, cand_v, overflow);
     return cudaGetLastError();
+}
+
+template <bool kFirstHit, bool kExclude, int kCand>
+int resident_warps() {
+    constexpr int kW = kCand > 0 ? kCandWarps : kWarps;
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, packet_kernel<kFirstHit, kExclude, kCand>, kW * 32, 0);
+    return err != cudaSuccess ? -static_cast<int>(err) : blocks * kW;
 }
 
 }  // namespace
@@ -447,25 +626,98 @@ extern "C" int dxrpt_packet_traverse(const float* table, int32_t num_rows,
     const bool strip = strip_alpha != 0;
     const int64_t packets = n / kPacket;
     const cudaError_t err =
-        first_hit ? launch<true>(s, packets, table, num_rows, root_code,
-                                 stack_depth, iters, strip, ray_o, ray_d,
-                                 inv_d, t_min, t_max, active, out_t, out_tri,
-                                 out_u, out_v)
-                  : launch<false>(s, packets, table, num_rows, root_code,
-                                  stack_depth, iters, strip, ray_o, ray_d,
-                                  inv_d, t_min, t_max, active, out_t, out_tri,
-                                  out_u, out_v);
+        first_hit ? launch<true, false, 0>(s, packets, table, num_rows,
+                                           root_code, stack_depth, iters,
+                                           strip, ray_o, ray_d, inv_d, t_min,
+                                           t_max, active, out_t, out_tri,
+                                           out_u, out_v)
+                  : launch<false, false, 0>(s, packets, table, num_rows,
+                                            root_code, stack_depth, iters,
+                                            strip, ray_o, ray_d, inv_d, t_min,
+                                            t_max, active, out_t, out_tri,
+                                            out_u, out_v);
     return static_cast<int>(err);
+}
+
+// The alpha modes on a table with alpha flags. k_cands 0: the opaque-only
+// walk (closest, or any hit when first_hit is set), flagged triangles
+// ignored; the cand_* and overflow pointers are not read. k_cands = K in
+// 1..8: the K-candidate closest walk (first_hit must be 0), which also
+// writes cand_t/cand_tri/cand_u/cand_v (n, K) row-major and overflow (n,).
+extern "C" int dxrpt_packet_traverse_alpha(
+    const float* table, int32_t num_rows, int32_t root_code,
+    int32_t stack_depth, int64_t max_iters, int32_t first_hit,
+    int32_t k_cands, const float* ray_o, const float* ray_d,
+    const float* inv_d, const float* t_min, const float* t_max,
+    const uint8_t* active, int64_t n, float* out_t, int32_t* out_tri,
+    float* out_u, float* out_v, float* cand_t, int32_t* cand_tri,
+    float* cand_u, float* cand_v, uint8_t* overflow, void* stream) {
+    if (n <= 0) return 0;
+    if (n % kPacket != 0 || stack_depth < 1 || stack_depth > kMaxStack
+        || max_iters < 1 || max_iters > INT32_MAX || k_cands < 0
+        || k_cands > kMaxCands || (k_cands > 0 && first_hit))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int32_t iters = static_cast<int32_t>(max_iters);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t p = n / kPacket;
+#define DXRPT_CANDS(K)                                                      \
+    case K:                                                                 \
+        return static_cast<int>(launch<false, false, K>(                    \
+            s, p, table, num_rows, root_code, stack_depth, iters, true,     \
+            ray_o, ray_d, inv_d, t_min, t_max, active, out_t, out_tri,      \
+            out_u, out_v, cand_t, cand_tri, cand_u, cand_v, overflow));
+    switch (k_cands) {
+        case 0:
+            return static_cast<int>(
+                first_hit ? launch<true, true, 0>(s, p, table, num_rows,
+                                                  root_code, stack_depth,
+                                                  iters, true, ray_o, ray_d,
+                                                  inv_d, t_min, t_max, active,
+                                                  out_t, out_tri, out_u,
+                                                  out_v)
+                          : launch<false, true, 0>(s, p, table, num_rows,
+                                                   root_code, stack_depth,
+                                                   iters, true, ray_o, ray_d,
+                                                   inv_d, t_min, t_max,
+                                                   active, out_t, out_tri,
+                                                   out_u, out_v));
+        DXRPT_CANDS(1)
+        DXRPT_CANDS(2)
+        DXRPT_CANDS(3)
+        DXRPT_CANDS(4)
+        DXRPT_CANDS(5)
+        DXRPT_CANDS(6)
+        DXRPT_CANDS(7)
+        DXRPT_CANDS(8)
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef DXRPT_CANDS
 }
 
 // Warps of the closest-hit (first_hit 0) or any-hit kernel that one SM of the
 // current device holds at once, or minus the CUDA error code.
 extern "C" int dxrpt_packet_resident_warps(int32_t first_hit) {
-    int blocks = 0;
-    const cudaError_t err =
-        first_hit ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        &blocks, packet_kernel<true>, kWarps * 32, 0)
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        &blocks, packet_kernel<false>, kWarps * 32, 0);
-    return err != cudaSuccess ? -static_cast<int>(err) : blocks * kWarps;
+    return first_hit ? resident_warps<true, false, 0>()
+                     : resident_warps<false, false, 0>();
+}
+
+// The same for the alpha modes: the opaque-only walk (k_cands 0; closest,
+// or any hit when first_hit is set) or the K-candidate walk.
+extern "C" int dxrpt_packet_mode_resident_warps(int32_t first_hit,
+                                                int32_t k_cands) {
+    switch (k_cands) {
+        case 0:
+            return first_hit ? resident_warps<true, true, 0>()
+                             : resident_warps<false, true, 0>();
+        case 1: return resident_warps<false, false, 1>();
+        case 2: return resident_warps<false, false, 2>();
+        case 3: return resident_warps<false, false, 3>();
+        case 4: return resident_warps<false, false, 4>();
+        case 5: return resident_warps<false, false, 5>();
+        case 6: return resident_warps<false, false, 6>();
+        case 7: return resident_warps<false, false, 7>();
+        case 8: return resident_warps<false, false, 8>();
+        default: return -static_cast<int>(cudaErrorInvalidValue);
+    }
 }

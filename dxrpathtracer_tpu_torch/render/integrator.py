@@ -36,9 +36,25 @@ the JAX package, route in its order:
   - proxy seeding (accel/proxy.py, where the proxy is bound and
     DXRPT_PROXY_SEED is set and not "0"): per-ray opaque closest hits are
     bounded by the nearest proxy hit; it comes before the cut's screen.
-Split alpha (K candidates, masked raster bins) is not ported. Neither is the
-JAX package's punch-through with raster rounds for alpha-tested depth-1
-rays: they keep the in-walk alpha test below.
+The split alpha route, off by default as in the JAX package, routes where
+DXRPT_SPLIT_ALPHA is set, the session has an alpha-only table (`alpha_bvh`:
+the alpha-tested triangles, two to a leaf) and the W8 table flags them:
+  - depth-1 alpha-tested closest hits on packet lanes: the opaque-only
+    packet walk of `bvh` (or, where the bins are masked to opaque
+    triangles, the software raster) gives the nearest opaque hit; the
+    K-candidate packet walk of the alpha-only table, bounded by it, gives
+    each lane's K nearest alpha-tested hits (K = DXRPT_KCAND, 8 by
+    default, at most 8), which are tapped outside the walk, nearest first
+    (`_split_alpha_closest`);
+  - alpha-tested packet shadow rays (sun, and terminal under
+    packet_shadows_all_depths): the opaque-only packet any-hit walk, then
+    the same candidates on the lanes it leaves unblocked
+    (`_split_alpha_visibility`).
+  The route keeps the JAX punch-through's truncation: a lane whose K
+  nearest candidates are all rejected takes the K-th as opaque (the
+  in-walk test would go on). The JAX package's punch-through itself, with
+  its raster rounds, is not ported: without the switch alpha-tested rays
+  keep the in-walk alpha test below.
 
 Alpha testing runs inside the per-ray walk (the kernel's alpha
 instantiations, or the plain walk's accept_fn): the JAX package's in-loop
@@ -77,11 +93,12 @@ import torch
 from ..accel import history as history_lib
 from ..accel import proxy as proxy_lib
 from ..accel.gather import row_gather
-from ..accel.packet import (PACKET, packet_any_hit, packet_any_hit_rec,
-                            packet_closest_hit)
+from ..accel.packet import (LEAF_EXTRACT, PACKET, packet_any_hit,
+                            packet_any_hit_rec, packet_closest_hit,
+                            packet_closest_hit_alpha)
 from ..accel.proxy import cut_clear, screened_any
 from ..accel.sunspace import sun_any_hit
-from ..accel.traverse import AlphaTest, any_hit, closest_hit
+from ..accel.traverse import AlphaTest, HitRecord, any_hit, closest_hit
 from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings
 from ..core import brdf as brdf_lib
 from ..core import cmj
@@ -226,6 +243,96 @@ def _make_alpha_test(scene, settings: AppSettings) -> AlphaTest | None:
     if not scene.any_opacity:
         return None
     return AlphaTest(scene.tri_shade, scene.texels)
+
+
+def _resolve_candidates(rec, cands, accept):
+    """The K-candidate resolution (JAX `_resolve_candidates`): each lane's
+    first candidate (nearest first) below rec.t that `accept` passes wins
+    over `rec`; returns the winners as a HitRecord. Only the candidates
+    below rec.t are tapped. (The JAX function also returns the lanes its
+    punch-through fallback takes, which the port does not have.)"""
+    valid = (cands["tri"] >= 0) & (cands["t"] < rec.t[:, None])
+    acc = torch.zeros_like(valid)
+    sel = valid.nonzero(as_tuple=True)
+    if sel[0].numel():
+        acc[sel] = accept(cands["tri"][sel], cands["u"][sel],
+                          cands["v"][sel])
+    ok = valid & acc
+    resolved = ok.any(dim=1)
+    first = ok.to(torch.int8).argmax(dim=1, keepdim=True)  # first True
+    pick = lambda k, base: torch.where(  # noqa: E731
+        resolved, cands[k].gather(1, first)[:, 0], base)
+    return HitRecord(t=pick("t", rec.t), tri_id=pick("tri", rec.tri_id),
+                     u=pick("u", rec.u), v=pick("v", rec.v))
+
+
+def _alpha_resolve_all(kcand_fn, accept, o, d, t_min, bound, active,
+                       rec_default):
+    """The alpha candidates' resolution against the alpha-only table (JAX
+    `_alpha_resolve_all` with no_overflow): one K-candidate walk bounded
+    by `bound`, the taps on its candidates, and the JAX punch-through's
+    truncation: a lane whose full buffer has every candidate rejected
+    takes its K-th candidate as opaque. The alpha table's leaves hold at
+    most LEAF_EXTRACT triangles, so no lane overflows."""
+    n, dev = o.shape[0], o.device
+    f32 = torch.float32
+    t_min = torch.as_tensor(t_min, dtype=f32, device=dev).expand(n)
+    bound = torch.as_tensor(bound, dtype=f32, device=dev).expand(n)
+    _, cands = kcand_fn(o, d, t_min, bound, active)
+    win = _resolve_candidates(rec_default, cands, accept)
+    resolved = win.t < rec_default.t
+    last_t, last_tri = cands["t"][:, -1], cands["tri"][:, -1]
+    full = (last_tri >= 0) & (last_t < rec_default.t)
+    take = active & full & ~resolved & ~cands["overflow"]
+    return HitRecord(t=torch.where(take, last_t, win.t),
+                     tri_id=torch.where(take, last_tri, win.tri_id),
+                     u=torch.where(take, cands["u"][:, -1], win.u),
+                     v=torch.where(take, cands["v"][:, -1], win.v))
+
+
+def _split_alpha_closest(opq_fn, kcand_fn, accept, o, d, t_min, t_max,
+                         active):
+    """The split alpha route's closest hit (JAX `_split_alpha_closest`):
+    the opaque-only walk of the scene table (or the masked raster bins)
+    gives the nearest opaque hit, which bounds the K-candidate walk of the
+    alpha-only table; its candidates are tapped outside the walk."""
+    rec = opq_fn(o, d, t_min, t_max, active)
+    return _alpha_resolve_all(kcand_fn, accept, o, d, t_min, rec.t, active,
+                              rec)
+
+
+def _split_alpha_visibility(opq_any_fn, kcand_fn, accept, o, d, t_min,
+                            t_max, active):
+    """The split alpha route's shadow visibility (JAX
+    `_split_alpha_visibility`): the opaque-only any-hit walk, then the
+    candidates' resolution on the lanes it leaves unblocked. (N,) f32,
+    1 = unoccluded."""
+    n, dev = o.shape[0], o.device
+    vis_opq, _ = opq_any_fn(o, d, t_min, t_max, active)
+    blocked_opq = active & (vis_opq == 0.0)
+    need_alpha = active & ~blocked_opq
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
+    rec_default = HitRecord(
+        t=t_max, tri_id=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        u=torch.zeros(n, device=dev), v=torch.zeros(n, device=dev))
+    win = _alpha_resolve_all(kcand_fn, accept, o, d, t_min, t_max,
+                             need_alpha, rec_default)
+    blocked = blocked_opq | (need_alpha & (win.tri_id >= 0))
+    return torch.where(blocked, 0.0, 1.0)
+
+
+def _split_alpha_tables(bvh, alpha_bvh):
+    """(the alpha-only table, K) when the split alpha route is on
+    (DXRPT_SPLIT_ALPHA set, an alpha-only table given, the W8 table with
+    alpha flags), else None. K is DXRPT_KCAND (8 by default)."""
+    if not (os.environ.get("DXRPT_SPLIT_ALPHA") and alpha_bvh is not None
+            and bvh.has_alpha_flags):
+        return None
+    if alpha_bvh.leaf_size > LEAF_EXTRACT:
+        raise ValueError(f"split alpha: the alpha-only table's leaves hold "
+                         f"{alpha_bvh.leaf_size} triangles; the route needs "
+                         f"at most LEAF_EXTRACT = {LEAF_EXTRACT}")
+    return alpha_bvh, int(os.environ.get("DXRPT_KCAND", "8"))
 
 
 def _num_lights(scene, settings: AppSettings) -> int:
@@ -562,7 +669,8 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                 total_num_pixels: int, first_set_idx: int = 1,
                 initial_is_diffuse: bool = False, t_min0=0.0, active0=None,
                 sample_idx=None, sun_grid=None, proxy=None, cut=None,
-                packet_coherent: bool = False, history=None, raster=None):
+                packet_coherent: bool = False, history=None, raster=None,
+                alpha_bvh=None):
     """Trace a wavefront of depth-1 rays to completion; returns (N, 3)
     radiance clamped to [0, FP16Max], and with a `history` (radiance, the
     new history).
@@ -586,7 +694,9 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     (N,) i32 in these lanes' order, "tri_table": (T, 9)}) seeds the
     depth-1 closest hits and packet sun rays. Both are ignored where the
     module docstring's conditions do not hold; a history passed in comes
-    back updated (only where it was used) all the same."""
+    back updated (only where it was used) all the same. `alpha_bvh` (the
+    alpha-only table, bvh.build_alpha_bvh_for_scene) serves the split
+    alpha route under DXRPT_SPLIT_ALPHA."""
     s = settings
     n = ray_o.shape[0]
     cmj_sample_idx = frame.curr_sample_idx if sample_idx is None else sample_idx
@@ -600,6 +710,10 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     new_history = None if history is None else dict(history)
     proxy_seed = (proxy is not None
                   and os.environ.get("DXRPT_PROXY_SEED", "0") != "0")
+    split = _split_alpha_tables(bvh, alpha_bvh)
+    if split is not None:
+        kcand_fn = (lambda *r, t=split[0], k=split[1]:
+                    packet_closest_hit_alpha(t, *r, k_cands=k))
     state = _path_state0(ray_o, ray_d, t_max, t_min0, active0,
                          initial_is_diffuse)
     for depth, flags in _depth_schedule(s):
@@ -608,8 +722,21 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
         args = (state["ray_o"], state["ray_d"], state["t_min"],
                 state["t_max"])
         if (raster is not None and depth == 1 and use_packet and a is None
-                and not use_history):
+                and not use_history and not raster.opaque_only):
             rec = raster_closest_hit(raster, *args, state["active"])
+        elif (a is not None and split is not None and use_packet
+              and depth == 1):
+            # masked bins hold only opaque triangles: they are the
+            # opaque-only step (as JAX's, only without the history, which
+            # an alpha scene turns off)
+            if (raster is not None and raster.opaque_only
+                    and not use_history):
+                opq = lambda *r: raster_closest_hit(raster, *r)  # noqa: E731
+            else:
+                opq = lambda *r: packet_closest_hit(  # noqa: E731
+                    bvh, *r, exclude_alpha=True)
+            rec = _split_alpha_closest(opq, kcand_fn, a, *args,
+                                       state["active"])
         elif a is None and use_history and depth == 1:
             base = (
                 (lambda *r: packet_closest_hit(bvh, *r)) if use_packet
@@ -654,6 +781,11 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                     history["tri_table"], history["sun_tri"], *r)
             elif packet_kind and a is None:
                 vis = packet_any_hit(bvh, *r)
+            elif packet_kind and split is not None:
+                vis = _split_alpha_visibility(
+                    lambda *q: packet_any_hit_rec(bvh, *q,
+                                                  exclude_alpha=True),
+                    kcand_fn, a, *r)
             elif packet_kind:
                 # the JAX package's packet punch-through: here the per-ray
                 # walk with the alpha test, unscreened
@@ -737,7 +869,7 @@ def _untile_order(x, height: int, width: int, ty: int, tx: int):
 def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                   frame: FrameConstants, width: int, height: int, accum,
                   sun_grid=None, proxy=None, cut=None, history=None,
-                  raster=None):
+                  raster=None, alpha_bvh=None):
     """One progressive sample over the whole frame: raygen + trace + running
     mean (RaygenShader, RayTrace.hlsl:92-149). Returns the new accumulation
     (height, width, 3) f32, and with a `history` (accumulation, the new
@@ -745,8 +877,8 @@ def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     the image, the lanes are traced in tile order (each ray with its pixel
     index, so the CMJ samples are the row-major frame's) and the radiance
     is put back in row-major order; `sun_grid`, `proxy`, `cut` and
-    `history` (in the lanes' order) go to trace_paths, and `raster` where
-    its tiles are the lanes' tiles."""
+    `history` (in the lanes' order) and `alpha_bvh` go to trace_paths, and
+    `raster` where its tiles are the lanes' tiles."""
     ray_start, ray_dir, ray_len, pixel_idx = raygen(
         settings, frame, width, height, accum.device)
     dims = (_packet_tile_dims(height, width)
@@ -760,7 +892,7 @@ def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                            *rays, width * height, first_set_idx=1,
                            sun_grid=sun_grid, proxy=proxy, cut=cut,
                            packet_coherent=dims is not None, history=history,
-                           raster=raster)
+                           raster=raster, alpha_bvh=alpha_bvh)
     if history is not None:
         radiance, history = radiance
     if dims is not None:

@@ -66,6 +66,10 @@ class RasterBins:
     tri_table: torch.Tensor   # (T, 9) f32 v0, e1, e2
     ty: int = 8               # the packet tile's rows and columns
     tx: int = 16
+    # True when only opaque triangles were binned (the split alpha route's
+    # opaque-only step); such bins never answer a ray that must see
+    # alpha-tested triangles as opaque
+    opaque_only: bool = False
 
     @property
     def n_tiles(self) -> int:
@@ -192,15 +196,20 @@ def bin_pairs_host(bboxes, width, slab_h, row0, ty, tx):
 
 
 def build_raster_bins(positions, tri_idx, view_proj, near, width, height,
-                      ty, tx, tri_table) -> RasterBins:
+                      ty, tx, tri_table, opaque_tris=None) -> RasterBins:
     """The CSR bins of a width x height frame in (ty, tx) tiles (CPU
     tensors) for the camera `view_proj` (4x4, row-vector convention) with
     near plane `near`; `tri_table` is build_tri_table's rows, numpy or a
-    tensor (kept as given)."""
+    tensor (kept as given). opaque_tris ((T,) bool) bins only the
+    triangles it marks, as the JAX session masks the projected boxes for
+    the split alpha route; the bins are then opaque_only."""
     positions = np.asarray(positions)
     tri_idx = np.asarray(tri_idx)
     bboxes = project_tri_bboxes(positions, tri_idx, view_proj, near, width,
                                 height)
+    if opaque_tris is not None:
+        ok, *rest = bboxes
+        bboxes = (ok & np.asarray(opaque_tris, bool), *rest)
     tri_s, tile_s, _, _ = bin_pairs_host(bboxes, width, height, 0, ty, tx)
     n_tiles = (width // tx) * (height // ty)
     if len(tri_s) >= 2 ** 31:
@@ -212,7 +221,8 @@ def build_raster_bins(positions, tri_idx, view_proj, near, width, height,
                                                           np.float32))
     return RasterBins(tile_start=torch.from_numpy(start.astype(np.int32)),
                       tri_id=torch.from_numpy(tri_s), tri_table=tri_table,
-                      ty=int(ty), tx=int(tx))
+                      ty=int(ty), tx=int(tx),
+                      opaque_only=opaque_tris is not None)
 
 
 # ---------------------------------------------------------------------------

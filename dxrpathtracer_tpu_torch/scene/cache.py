@@ -9,7 +9,8 @@ one compressed .npz: every tensor as its numpy bytes under a dotted field
 path, plus a JSON header that names each dataclass node.
 
 Entries are keyed by a content hash of the source FBX bytes, the preset
-fields, this package's tag and its LOADER_VERSION: a change to the importer
+fields, the alpha subdivision's switches (DXRPT_ALPHA_SPLIT and
+DXRPT_ALPHA_SPLIT_LEVEL), this package's tag and its LOADER_VERSION: a change to the importer
 or to the asset invalidates the entry, and the JAX package's entries, which
 may share the DXRPT_SCENE_CACHE directory, never match. A header may name
 only the classes of `_CLASSES` (the port's own scene types); an entry that
@@ -35,7 +36,7 @@ log = logging.getLogger(__name__)
 
 # Bump when the importer's output changes (fields, packing, parity fixes):
 # stale entries must not survive a loader change.
-LOADER_VERSION = 1
+LOADER_VERSION = 2
 PACKAGE_TAG = "dxrpathtracer_tpu_torch"
 
 # The classes an entry may rebuild, by the name its header gives them.
@@ -123,6 +124,10 @@ def default_cache_dir() -> str:
 def scene_cache_key(fbx_path: str, preset) -> str:
     h = hashlib.sha256()
     h.update(f"{PACKAGE_TAG}:loader-v{LOADER_VERSION}".encode())
+    # the load-time alpha subdivision (scene/alphasplit.py) changes the
+    # built geometry, so its switches are part of the key
+    h.update(("alphasplit:" + os.environ.get("DXRPT_ALPHA_SPLIT", "") + ":"
+              + os.environ.get("DXRPT_ALPHA_SPLIT_LEVEL", "4")).encode())
     h.update(repr(dataclasses.astuple(preset)).encode())
     with open(fbx_path, "rb") as f:
         for chunk in iter(lambda: f.read(1 << 20), b""):

@@ -27,6 +27,7 @@ import numpy as np
 
 from ..app.settings import Scenes
 from ..core.quaternion import quat_from_roll_pitch_yaw
+from .alphasplit import maybe_split_alpha
 from .build import build_scene
 from .procedural import (MeshData, box_test_meshes, make_box, make_plane,
                          make_sphere)
@@ -216,6 +217,8 @@ def _suntemple_standin_scene(asset_root=None) -> Scene:
             has_op[mat_idx] = True
     materials = dataclasses.replace(materials, opacity=opacity,
                                     has_opacity=has_op)
+    if has_op.any():
+        meshes, materials, _ = maybe_split_alpha(meshes, materials, builder)
     return build_scene(meshes, materials=materials, atlas_builder=builder)
 
 
@@ -258,15 +261,13 @@ def sponza_alpha_standin(num_cards: int = 384, seed: int = 7,
     DXRPathTracer.cpp:1176-1199) bound to `opacity_mask` ((H, W, 1) f32;
     the JAX package binds SunTemple's BC4 foliage map), or to an opaque
     white texel when it is None. Returns (scene, preset) like load_scene.
-
-    The JAX package can split the cards into an opaque and an alpha part
-    (`alphasplit.maybe_split_alpha`, off unless DXRPT_ALPHA_SPLIT is set);
-    that belongs to the split-alpha engine (ROADMAP.md Queue 1 item 12) and
-    is not ported, so the scene is the JAX package's default one."""
+    Where DXRPT_ALPHA_SPLIT is "1" the cards are subdivided against the
+    mask at load time (scene/alphasplit.py), as in the JAX package."""
     meshes = _sponza_standin_meshes() + sponza_card_meshes(num_cards, seed)
     builder = AtlasBuilder()
     materials = alpha_materials(builder, "tree_branches_opacity",
                                 opacity_mask)
+    meshes, materials, _ = maybe_split_alpha(meshes, materials, builder)
     scene = build_scene(meshes, materials=materials, atlas_builder=builder)
     return scene, PRESETS[Scenes.Sponza]
 
@@ -414,10 +415,12 @@ def _load_fbx_scene_full(preset: ScenePreset, asset_root,
         angular_attenuation=[[l.inner_angle, l.outer_angle]
                              for l in fbx.spot_lights],
     ) if fbx.spot_lights else make_spot_lights()
-    # The JAX package splits alpha-tested meshes here only when
-    # DXRPT_ALPHA_SPLIT is set (`maybe_split_alpha`, the split-alpha engine,
-    # ROADMAP.md Queue 1 item 12); by default it does not, nor does the port.
-    return build_scene(fbx.meshes, materials=materials, atlas_builder=builder,
+    # alpha-tested meshes are subdivided where DXRPT_ALPHA_SPLIT is "1"
+    # (scene/alphasplit.py; the scene cache's key holds the switch)
+    meshes = fbx.meshes
+    if has_opacity.any():
+        meshes, materials, _ = maybe_split_alpha(meshes, materials, builder)
+    return build_scene(meshes, materials=materials, atlas_builder=builder,
                        lights=lights)
 
 

@@ -70,6 +70,19 @@ tests/test_torch_swraster.py and chip_smoke.py S):
   - `raster_edge_scene`: for the software raster, a tile deeper than 320
     triangles, a repeated quad (equal t), a triangle through the near
     plane and empty tiles.
+
+The split alpha route's (tests/test_torch_kcand.py and chip_smoke.py K):
+
+  - `kcand_case_meshes` and `kcand_cases`: one alpha scene (a floor, the
+    16 stacked, shifted cards of "alpha_stack" with its band mask, two
+    coincident alpha cards and an opaque quad in their plane) and named ray
+    sets for its opaque-only and K-candidate walks: "overflow" (down the
+    stack, on the leaf-12 alpha table, where one leaf holds more than two
+    candidates of a ray), "all_rejected" (down the stack where the first
+    nine cards reject: a full buffer of K = 8 rejected candidates),
+    "equal_t" (through the coincident cards: candidates at equal t),
+    "inactive" (a packet with no active ray beside a full one) and "k1"
+    (the stack at K = 1); each with its alpha table's leaf size and K.
 """
 
 import numpy as np
@@ -838,3 +851,49 @@ def raster_edge_scene():
                          np.float32))
     t = np.concatenate(tris)
     return t[:, 0].copy(), t[:, 1].copy(), t[:, 2].copy()
+
+
+KCAND_STACK = 16  # stacked alpha cards of the K-candidate cases
+
+
+def kcand_case_meshes():
+    """(meshes, mask) of the K-candidate cases' scene: the floor (material
+    0, triangles 0-1), KCAND_STACK cards stacked as in "alpha_stack"
+    (material 1, triangles 2..), two coincident alpha cards at x = 4 and an
+    opaque quad in their plane beside them."""
+    floor = make_plane((20.0, 20.0), (0.0, -10.0, 0.0), material_idx=0)
+    stack = [make_plane((2.0, 2.0), (-0.08 * k, -0.5 * k, 0.0),
+                        material_idx=1) for k in range(KCAND_STACK)]
+    twins = [make_plane((2.0, 2.0), (4.0, 0.0, 0.0), material_idx=1)
+             for _ in range(2)]
+    beside = make_plane((2.0, 2.0), (4.0, 0.0, 1.5), material_idx=0)
+    return ([floor] + stack + twins + [beside],
+            _band_mask([0.0, 0.0, 0.0, 1.0]))
+
+
+def kcand_cases(seed=0, n=512):
+    """{name: (rays, alpha table leaf size, K)} on `kcand_case_meshes`'
+    scene (see the module docstring); every ray set is whole packets."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    # a ray at x0 crosses stacked card k at u = (x0 + 0.08 k + 1) / 2, the
+    # mask opaque from u = 0.75 on
+    o, d = _down_rays(rng, n, rng.uniform(-1.0, 0.6, n),
+                      rng.uniform(-0.9, 0.9, n), tilt=0.02)
+    out["overflow"] = (pad_to_packets(_alpha_rays(rng, o, d)), 12, 8)
+    o, d = _down_rays(rng, n, rng.uniform(-0.98, -0.3, n),
+                      rng.uniform(-0.9, 0.9, n), tilt=0.005)
+    out["all_rejected"] = (pad_to_packets(_alpha_rays(rng, o, d)), 2, 8)
+    o, d = _down_rays(rng, n, rng.uniform(3.1, 4.9, n),
+                      rng.uniform(-0.9, 2.4, n), tilt=0.05)
+    out["equal_t"] = (pad_to_packets(_alpha_rays(rng, o, d)), 2, 4)
+    o, d = _down_rays(rng, 2 * PACKET, rng.uniform(-1.0, 0.6, 2 * PACKET),
+                      rng.uniform(-0.9, 0.9, 2 * PACKET), tilt=0.02)
+    rays = _alpha_rays(rng, o, d)
+    rays["active"][:PACKET] = False
+    rays["active"][PACKET:] = True
+    out["inactive"] = (rays, 2, 8)
+    o, d = _down_rays(rng, n, rng.uniform(-1.0, 0.6, n),
+                      rng.uniform(-0.9, 0.9, n), tilt=0.02)
+    out["k1"] = (pad_to_packets(_alpha_rays(rng, o, d)), 2, 1)
+    return out
