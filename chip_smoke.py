@@ -21,9 +21,11 @@ engines the default settings route through (packets for depth-1 rays, the
 sun-space grid for sun shadows, the dense-proxy and AABB-cut screens in
 front of the per-ray walks) and the seeded and binned alternates of an
 opaque closest hit that the JAX package keeps off by default (temporal hit
-reuse, proxy seeding, the software raster of camera rays), and its split
-alpha route and load-time alpha subdivision, off by default too. Phases,
-each fatal on failure:
+reuse, proxy seeding, the software raster of camera rays), its split
+alpha route and load-time alpha subdivision, off by default too, and
+multi-device rendering (parallel/mesh.py: rows, samples and both over a
+list of devices, and the texel-row-sharded bake), here with every shard on
+the one card. Phases, each fatal on failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
@@ -38,11 +40,11 @@ each fatal on failure:
      instantiations must have no stack frame and no spills; the same ptxas
      figures of the engine kernels (packet closest and any, their
      opaque-only instantiations and the K-candidate ones for K = 1..8, the
-     grid walk, the proxy and cut screens, the proxy's nearest hit, the
+     grid walk and its alpha instantiation, the proxy and cut screens, the proxy's nearest hit, the
      history's revalidation, the raster), with the warps one SM holds at
      once; the packet kernels but the K-candidate ones (one warp per
-     packet, its stack in registers) must have no stack frame and no
-     spills;
+     packet, its stack in registers) and the opaque grid walk must have
+     no stack frame and no spills;
   3. traversal kernel against plain: the kernel and its plain torch version,
      both on the card, (a) on the five ray classes of one plain-route 1080p
      sample (depth-1 closest on W8, depth-1 sun on W8, depth-2 closest, sun
@@ -115,6 +117,22 @@ each fatal on failure:
      BoxTest on (its cut gated on) and with enable_clear_cut off: ms/frame,
      spread, launches per frame by kernel; every image within rel-RMSE
      1e-4 of its scene's engines-on image; the grid's host build seconds;
+  M. multi-device rendering on the phase 4 session, the mesh [cuda:0] * n
+     (the device list and torch.cuda.device_count() printed; with one
+     card the shards run one after another): M1, the row step with the
+     default engines at 3 shards of 360 rows, bit-equal to the unsharded
+     render_sample of the same frame constants and accumulation, at 4
+     shards of 270 rows (2x64 packet tiles) within rel-RMSE 1e-4, the
+     differing pixels printed, and at 3 shards with per-shard raster bins
+     (`raster_shards`) bit-equal to the unsharded frame with the full
+     frame's bins; the median ms of 5 synchronised 3-shard steps beside 5
+     unsharded samples; M2, the sample-parallel step, 4 shards x 2 steps
+     against 8 sequential samples, and M3, the 2x2 (samples, rows) step, 2
+     steps against 4, each within allclose(1e-4, 1e-4); launches per
+     shard as the route wants; M4 (after phase 7): one step of phase 6's
+     4096^2 bake over 4 texel-row shards (each walking its 1024 rows in
+     512-row slabs) bit-equal to Baker.bake_step at the same sample index,
+     both timed;
   S. the seeded and binned routes, each on its own 1080p stand-in session
      (its switch set while it renders), against the default route's 10
      frames after a first on the phase 4 session: temporal history
@@ -147,6 +165,14 @@ each fatal on failure:
      W8; depth-2 closest, sun, spot and terminal on W32; the spot rays of
      the four lights in one call): 0 lanes that differ in any bit; ms, M
      visits/s, candidates, texture taps and rejections per ray, bound;
+     Then the grid kernel's alpha instantiation (sun_any_hit with the
+     AlphaTest, csrc/sungrid.cu) on the two alpha-tested sun classes
+     (d1 on W8, d2 on W32) through the session's sun grid: 0 lanes that
+     differ from its plain version (sun_any_hit_plain with the test as
+     accept_fn) and from the per-ray alpha any hit, blockers that only the
+     test rejects present; ms, plain ms, the per-ray walk's ms, candidates,
+     taps and rejections, and the bound (the grid's bytes and operations
+     plus TAP_BYTES and TAP_OPS a tap);
   B. the alpha frame main path: that session at the reference's
      max_any_hit_path_length 1 and at 3 (every ray alpha-tested), 10 frames
      each after a first: median ms/frame with the spread, Mrays/s by
@@ -368,8 +394,12 @@ alpha route's packet_closest_opaque, packet_any_opaque and
 packet_candidates), whose `launches` count the main paths' runs (the
 opaque frame, the alpha frames, the bake, the raster frames of R1 and R2,
 the imported frames of F, the animation of AN, the viewer of I1-I3, E2's
-frames and bake steps, S's routes and K's split routes) and
-every one of which must be > 0; the last is {"ok": true, "device": {...}}.
+frames and bake steps, S's routes, K's split routes and M's sharded steps)
+and every one of which must be > 0, and one for the grid's alpha
+instantiation (sun_any_hit_alpha), whose `launches` are phase A's check's:
+no route sends sun rays to it, as no JAX caller passes the grid an
+accept_fn (its ms, plain ms and bound are the two classes' sums); the last
+is {"ok": true, "device": {...}}.
 The CPU frames of K's, C's and R4's card-vs-CPU checks, the longest parts
 of the run, render in three worker processes (spawned, two torch threads
 each, at the lowest priority) from the end of K's timed runs on, while
@@ -630,6 +660,7 @@ def phase_build():
     warps = engine_resident_warps(packet, sunspace, proxy)
     warps["history_revalidate"] = history.resident_warps()
     warps["raster_closest_hit"] = swraster.resident_warps()
+    warps["sun_any_hit_alpha"] = sunspace.resident_warps(True)
     warps["packet_closest_opaque"] = packet.resident_warps(False)
     warps["packet_any_opaque"] = packet.resident_warps(True)
     for k in range(1, packet.MAX_CANDS + 1):
@@ -642,14 +673,16 @@ def phase_build():
             log(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
             # one warp per packet: the stack lives in registers; the grid
             # walk keeps its rays and records in registers (the K-candidate
-            # walk's figures are reported, not held)
+            # walk's and the grid's alpha instantiation's figures are
+            # reported, not held)
             if ((name.startswith("packet") and "candidates" not in name)
                     or name == "sun_any_hit") and (
                     row["stack_frame_bytes"] or row["spill_stores"]
                     or row["spill_loads"]):
                 raise SystemExit(f"chip_smoke: the {name} kernel uses local "
                                  f"memory: {row}")
-    want = {"packet_closest", "packet_any", "sun_any_hit", "proxy_blocked",
+    want = {"packet_closest", "packet_any", "sun_any_hit",
+            "sun_any_hit_alpha", "proxy_blocked",
             "cut_clear", *ROUTE_KERNELS, "packet_closest_opaque",
             "packet_any_opaque",
             *(f"packet_candidates_k{k}"
@@ -688,8 +721,9 @@ def ptxas_entries(log_text):
     """{kernel: registers, stack frame and spills} of the engines' kernels
     in nvcc's -Xptxas -v output (packet_kernel<first_hit, exclude_alpha,
     K> in its closest, any, opaque-only and K = 1..8 candidate
-    instantiations, sungrid_kernel, proxy_kernel, proxy_closest_kernel,
-    cut_kernel, revalidate_kernel, raster_kernel)."""
+    instantiations, sungrid_kernel<alpha> opaque and alpha-tested,
+    proxy_kernel, proxy_closest_kernel, cut_kernel, revalidate_kernel,
+    raster_kernel)."""
     import re
     names = {"packet_kernelILb0ELb0ELi0E": "packet_closest",
              "packet_kernelILb1ELb0ELi0E": "packet_any",
@@ -697,7 +731,12 @@ def ptxas_entries(log_text):
              "packet_kernelILb1ELb1ELi0E": "packet_any_opaque",
              **{f"packet_kernelILb0ELb0ELi{k}E": f"packet_candidates_k{k}"
                 for k in range(1, 9)},
-             "sungrid_kernel": "sun_any_hit", "proxy_kernel": "proxy_blocked",
+             "sungrid_kernelILb0E": "sun_any_hit",
+             "sungrid_kernelILb1E": "sun_any_hit_alpha",
+             # a build from before the alpha instantiation (engine_ab's
+             # parent)
+             "sungrid_kernelEPKf": "sun_any_hit",
+             "proxy_kernel": "proxy_blocked",
              "proxy_closest_kernel": "proxy_closest",
              "cut_kernel": "cut_clear",
              "revalidate_kernel": "history_revalidate",
@@ -1248,7 +1287,10 @@ def phase_alpha(smi):
         f"in the repository, the checker is bound "
         f"({float((checker_mask() < 0.35).mean()):.2f} of its texels "
         f"reject)")
-    checks = phase_kernel_vs_plain(sess, "alpha traversal classes")
+    classes = ray_classes(sess)
+    checks = phase_kernel_vs_plain(sess, "alpha traversal classes", classes)
+    grid_alpha = phase_grid_alpha(sess, classes, smi)
+    del classes
 
     runs = {}
     for any_hit_len in (1, 3):
@@ -1294,9 +1336,96 @@ def phase_alpha(smi):
     out = {"width": w, "height": h, "path_length": settings.max_path_length,
            "triangles": sess.scene.num_triangles,
            "spot_lights": scene.num_lights,
-           "init_s": init_s, "runs": runs}
+           "init_s": init_s, "runs": runs, "grid_alpha": grid_alpha}
     launches = [r["kernel_launches"] for r in runs.values()]
     return out, checks, launches, sess
+
+
+def phase_grid_alpha(sess, classes, smi):
+    """The grid kernel's alpha instantiation (sun_any_hit with the scene's
+    AlphaTest) on the alpha-tested sun classes of `classes` (ray_classes of
+    the SponzaAlpha-checker session at max_any_hit_path_length 3: d1 on W8,
+    d2 on W32), through the session's grid: against its plain version
+    (sun_any_hit_plain with the test as accept_fn) and against the per-ray
+    alpha any hit of the class's table, 0 lanes that differ from either;
+    with the opaque grid's verdict on the same rays (the lanes only
+    rejected triangles block), the plain walk's candidates, taps and
+    rejections, times and the bound (the grid's bytes and operations plus
+    TAP_BYTES and TAP_OPS a tap). No route sends sun rays here (no JAX
+    caller passes an accept_fn), so its launches are this check's."""
+    from dxrpathtracer_tpu_torch.accel import sunspace, traverse
+    from dxrpathtracer_tpu_torch.render import integrator as it
+    grid = sess.update_sun_grid()
+    alpha = it._make_alpha_test(sess.scene, sess.settings)
+    if grid is None or alpha is None:
+        raise SystemExit("chip_smoke: the alpha session has no sun grid or "
+                         "no alpha test")
+    launches0 = sunspace.ALPHA_KERNEL_LAUNCHES
+    rows = {}
+    for name, (table, _, o, d, tmin, tmax, act, a) in classes.items():
+        if "_sun_any_" not in name or a is None:
+            continue
+        n = o.shape[0]
+        rays = (o.contiguous(), d.contiguous(),
+                torch.as_tensor(tmin, dtype=torch.float32,
+                                device=o.device).expand(n).contiguous(),
+                tmax.contiguous(), act.contiguous())
+        stats, tally = {}, {}
+        ref = sunspace.sun_any_hit_plain(
+            grid, *rays, stats=stats,
+            accept_fn=counting_accept(alpha, tally))
+        kern = lambda r=rays: sunspace._launch_kernel(  # noqa: E731
+            grid, *r, alpha=alpha)
+        got = kern()
+        walk = traverse.any_hit(table, *rays, alpha=alpha)
+        opaque = sunspace._launch_kernel(grid, *rays)
+        walk_ms, _ = cuda_ms(lambda r=rays, t=table: traverse.any_hit(
+            t, *r, alpha=alpha), repeat=3)
+        nbytes, ops = grid_work(stats, act)
+        taps = tally.get("taps", 0)
+        extra = {"rays": n, "active": int(act.sum()),
+                 "records": grid.num_rows,
+                 "mismatches_vs_plain": int((got != ref).sum()),
+                 "max_abs_err": float((got - ref).abs().max()),
+                 "vis_differ_vs_per_ray": int((got != walk).sum()),
+                 "blocked": int((got == 0).sum()),
+                 "blocked_opaque": int((opaque == 0).sum()),
+                 "blocked_only_by_rejected": int(((opaque == 0)
+                                                  & (got == 1)).sum()),
+                 "candidates": tally.get("candidates", 0), "taps": taps,
+                 "rejected": tally.get("rejected", 0),
+                 "record_visits": stats["visits"],
+                 "triangle_tests": stats["tri_tests"],
+                 "rows_touched": int(stats["touched"].sum()),
+                 "per_ray_alpha_walk_ms": walk_ms,
+                 "per_ray_table": f"W{table.width}"}
+        rows[name] = engine_row(
+            f"{name} alpha grid", kern,
+            lambda r=rays: sunspace.sun_any_hit_plain(grid, *r,
+                                                      accept_fn=alpha),
+            nbytes + taps * TAP_BYTES, ops + taps * TAP_OPS, extra,
+            phase="A")
+        rows[name]["bytes_ms"] = bound_ms(rows[name]["bytes"])[0]
+        rows[name]["ops_ms"] = bound_ms(0, rows[name]["ops"])[0]
+        if extra["mismatches_vs_plain"] or extra["vis_differ_vs_per_ray"]:
+            raise SystemExit(f"chip_smoke: the grid's alpha instantiation "
+                             f"on {name}: {extra}")
+        if not extra["blocked_only_by_rejected"] or not taps:
+            raise SystemExit(f"chip_smoke: {name}: the alpha test rejected "
+                             f"no blocker ({extra})")
+    if sorted(rows) != ["d1_sun_any_W8_alpha", "d2_sun_any_W32_alpha"]:
+        raise SystemExit(f"chip_smoke: alpha sun classes {sorted(rows)}")
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    total.update(
+        bound_by=("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                  else "operations"),
+        max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+        launches=sunspace.ALPHA_KERNEL_LAUNCHES - launches0)
+    log(f"A grid alpha: {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.1f} ms, bound {total['bound_ms']:.4f} ms "
+        f"({total['bound_by']}), {total['launches']} launches [{smi}]")
+    return {"classes": rows, "total": total}
 
 
 def recorded_frame(dev, any_hit_len, size, inject=None):
@@ -4231,6 +4360,235 @@ def phase_seeded_routes(frame_sess, smi):
 
 
 # ---------------------------------------------------------------------------
+# M: multi-device rendering (parallel/mesh.py), the shards on the one card
+# ---------------------------------------------------------------------------
+
+M_TIMED = 5  # M1: timed sharded steps, and unsharded samples beside them
+
+
+def m_card():
+    """The device every shard of phase M names (the card's index 0)."""
+    return torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        DEVICE)
+
+
+def m_timed(fn, repeat=M_TIMED):
+    """(median ms of `repeat` synchronised calls of fn on the host clock,
+    the last call's result)."""
+    dts = []
+    for _ in range(repeat):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        dts.append((time.time() - t0) * 1e3)
+    return statistics.median(dts), out
+
+
+def m_run(label, fn, calls, **per_call):
+    """fn() between reset_launches and read_launches; the launches must
+    be `per_call` times `calls` (check_launches). (result, launches)."""
+    reset_launches()
+    out = fn()
+    sync()
+    launches = read_launches()
+    check_launches(label, launches, calls, **per_call)
+    return out, launches
+
+
+def phase_multi_device(sess, smi):
+    """M1-M3 on the 1080p frame session (the default engines' route), every
+    shard on the card: row shards against the unsharded render_sample of
+    the same frame constants and accumulation, sample-parallel and 2x2
+    steps against sequential samples. Returns (results, launches)."""
+    import numpy as np
+
+    from dxrpathtracer_tpu_torch.parallel import mesh as M
+    from dxrpathtracer_tpu_torch.render.integrator import render_sample
+    from dxrpathtracer_tpu_torch.render.swraster import build_raster_bins
+    t_phase = time.time()
+    w, h, s, card = sess.width, sess.height, sess.settings, m_card()
+    grid = sess.update_sun_grid()
+    eng = dict(sun_grid=grid, proxy=sess.proxy, cut=sess.cut,
+               alpha_bvh=sess.bvh_alpha)
+    frame = sess.frame_constants(sess.sample_idx)
+    accum = sess.accum.clone()
+    out = {"device_count": torch.cuda.device_count(), "card": smi}
+    runs = []
+    # the engines' route per shard: 2 per-ray walks, packet closest and
+    # any, the grid, the proxy; the cut gated off
+    route = dict(traverse=2, packet_closest=1, packet_any=1, sun_any_hit=1,
+                 proxy_blocked=1, cut_clear=0)
+
+    def unsharded(acc, **kw):
+        return render_sample(sess.scene, sess.bvh, sess.bvh_ray,
+                             sess.sky_cube, s, frame, w, h, acc, **eng, **kw)
+
+    def sharded(step, mesh, acc, **kw):
+        return step(sess.scene, sess.bvh, M.shard_accum(mesh, acc),
+                    sess.sky_cube, frame, ray_bvh=sess.bvh_ray, **eng, **kw)
+
+    ref = unsharded(accum)
+    # M1: row shards
+    rows = {}
+    for n in (3, 4):
+        mesh = M.make_render_mesh([card] * n)
+        log(f"M1: {n} row shards of {h // n} rows on "
+            f"{[str(d) for d in mesh.flat()]} (torch.cuda.device_count() "
+            f"{torch.cuda.device_count()}: the shards run one after another "
+            f"on the one card)")
+        step = M.make_sharded_step(mesh, s, w, h)
+        parts, launches = m_run(f"M1 {n} row shards", lambda: sharded(
+            step, mesh, accum), n, **route)
+        runs.append(launches)
+        got = M.gather_shards(mesh, parts, card)
+        r = {"shards": n, "rows_per_shard": h // n,
+             "pixels_differ": int((got != ref).any(dim=-1).sum()),
+             "rel_rmse": rel_rmse(got, ref),
+             "bit_equal": bool(torch.equal(got, ref))}
+        if n == 3:
+            r["ms_sharded_median"], _ = m_timed(lambda: sharded(
+                step, mesh, accum))
+            r["ms_unsharded_median"], _ = m_timed(lambda: unsharded(accum))
+        rows[f"rows_{n}"] = r
+        log(f"M1 {n} row shards: " + ", ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items()) + f" [{smi}]")
+        if (n == 3 and not r["bit_equal"]) or r["rel_rmse"] > 1e-4:
+            raise SystemExit(f"chip_smoke: M1 {n} row shards: {r}")
+    # M1, the raster route: per-shard bins against the full frame's
+    host = sess.scene_host
+    args = (host.positions.numpy(), host.tri_idx.numpy(),
+            np.asarray(sess.camera.view_projection(), np.float64),
+            float(sess.camera.near_clip), w, h)
+    mesh = M.make_render_mesh([card] * 3)
+    t0 = time.time()
+    shards = M.raster_shards(mesh, *args, sess._triangle_table())
+    bin_s = time.time() - t0
+    full = build_raster_bins(*args, shards[0].ty, shards[0].tx,
+                             sess._triangle_table()).to(card)
+    ref_r = unsharded(accum, raster=full)
+    step = M.make_sharded_step(mesh, s, w, h)
+    parts, launches = m_run("M1 raster shards", lambda: sharded(
+        step, mesh, accum, raster=shards), 3,
+        **{**route, "packet_closest": 0, "raster_closest_hit": 1})
+    runs.append(launches)
+    got = M.gather_shards(mesh, parts, card)
+    rows["raster_3"] = r = {
+        "shards": 3, "tile": [shards[0].ty, shards[0].tx],
+        "pairs": [b.pairs for b in shards], "full_pairs": full.pairs,
+        "shard_binning_s": bin_s,
+        "pixels_differ": int((got != ref_r).any(dim=-1).sum()),
+        "bit_equal": bool(torch.equal(got, ref_r)),
+        "rel_rmse_vs_packet_route": rel_rmse(ref_r, ref)}
+    log("M1 3 raster shards: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in r.items()))
+    if not r["bit_equal"]:
+        raise SystemExit(f"chip_smoke: M1 raster shards: {r}")
+    out["rows"] = rows
+    del ref, ref_r, got, parts, shards, full
+
+    # M2, M3: sample-parallel (4 x 2 steps) and 2x2 (2 steps) against the
+    # sequential samples 0..7 and 0..3, with the tables and the grid alone
+    # (the steps' arguments, as in the JAX package)
+    seq = torch.zeros((h, w, 3), dtype=torch.float32, device=card)
+    for i in range(8):
+        seq = render_sample(sess.scene, sess.bvh, sess.bvh_ray,
+                            sess.sky_cube, s, sess.frame_constants(i), w, h,
+                            seq, sun_grid=grid)
+        if i == 3:
+            seq4 = seq.clone()
+    smesh = M.make_render_mesh([card] * 4, axis_name="samples")
+    gmesh = M.RenderMesh([[card] * 2] * 2, ("samples", "rows"))
+    for key, mesh, step, steps, want in (
+            ("samples_4x2", smesh,
+             M.make_sample_parallel_step(smesh, s, w, h), 2, seq),
+            ("grid_2x2", gmesh, M.make_grid_step(gmesh, s, w, h), 2, seq4)):
+        acc = M.shard_accum(mesh, torch.zeros(
+            (mesh.shape["samples"], h, w, 3), dtype=torch.float32,
+            device=card), axis_name="samples")
+
+        def run(acc=acc, step=step, steps=steps):
+            for i in range(steps):
+                acc = step(sess.scene, sess.bvh, acc, sess.sky_cube,
+                           sess.frame_constants(i), ray_bvh=sess.bvh_ray,
+                           sun_grid=grid)
+            return acc
+
+        # per shard and step the route above, the terminal rays unscreened
+        acc, launches = m_run(f"M {key}", run, mesh.size * steps,
+                              **{**route, "proxy_blocked": 0})
+        runs.append(launches)
+        img = M.sample_parallel_image(M.gather_shards(mesh, acc, card))
+        diff = (img - want).abs()
+        r = {"shards": mesh.size, "steps": steps,
+             "samples": mesh.shape["samples"] * steps,
+             "rel_rmse": rel_rmse(img, want),
+             "max_abs_diff": float(diff.max()),
+             "allclose_1e-4": bool(torch.allclose(img, want, rtol=1e-4,
+                                                  atol=1e-4))}
+        out[key] = r
+        log(f"M {key} ({'M2' if key.startswith('samples') else 'M3'}): "
+            + ", ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                        else f"{k}={v}" for k, v in r.items()))
+        if not r["allclose_1e-4"]:
+            raise SystemExit(f"chip_smoke: M {key}: {r}")
+    out["phase_s"] = time.time() - t_phase
+    log(f"phase M1-M3: {out['phase_s']:.1f} s")
+    return out, runs
+
+
+def phase_multi_device_bake(baker, smi):
+    """M4: one step of the 4096^2 bake over 4 texel-row shards on the card
+    against Baker.bake_step at the same sample index, bit for bit (each
+    shard walks its 1024 rows in the Baker's 512-row slabs). Advances the
+    baker by that step. Returns (results, launches)."""
+    from dxrpathtracer_tpu_torch.parallel import mesh as M
+    sess, res, card = baker.session, baker.resolution, m_card()
+    frame = sess.frame_constants(sess.sample_idx)
+    index, acc0 = baker.sample_index, baker.accum.clone()
+    grid = sess.update_sun_grid()
+    mesh = M.make_render_mesh([card] * 4)
+    step = M.make_sharded_bake_step(mesh, sess.settings, res)
+    maps = baker.surface_maps
+    pos, nrm = (M.shard_accum(mesh, maps[k]) for k in ("position", "normal"))
+
+    def run():
+        return step(sess.scene, sess.bvh_ray, M.shard_accum(mesh, acc0),
+                    sess.sky_cube, frame, pos, nrm, index, sun_grid=grid,
+                    proxy=sess.proxy)
+
+    slab = M._slab_rows(res // 4, res)  # the Baker's 512 rows at 4096^2
+    slabs = res // slab
+    # per slab: 3 per-ray walks, 2 grid walks, the proxy
+    per_slab = dict(traverse=3, sun_any_hit=2, proxy_blocked=1,
+                    packet_closest=0, packet_any=0, cut_clear=0)
+    sync()
+    t0 = time.time()
+    parts, launches = m_run("M4 bake shards", run, slabs, **per_slab)
+    sharded_s = time.time() - t0
+    got = M.gather_shards(mesh, parts, card)
+    del parts
+    sync()
+    t0 = time.time()
+    baker.bake_step()
+    sync()
+    baker_s = time.time() - t0
+    out = {"shards": 4, "rows_per_shard": res // 4, "slab_rows": slab,
+           "baker_slab_rows": baker._slab_rows, "sample_index": index,
+           "step_s_sharded": sharded_s, "step_s_baker": baker_s,
+           "texels_differ": int((got != baker.accum).any(dim=-1).sum()),
+           "bit_equal": bool(torch.equal(got, baker.accum)), "card": smi}
+    log("M4 bake, 4 texel-row shards: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in out.items()))
+    if not out["bit_equal"]:
+        raise SystemExit(f"chip_smoke: M4: {out}")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # K: the split alpha route (opaque-only and K-candidate packet walks, the
 # candidates' resolution, the masked raster bins) and the load-time alpha
 # subdivision
@@ -4648,6 +5006,8 @@ def main():
     del box_sess
     torch.cuda.empty_cache()
     seeded, seeded_launches = phase_seeded_routes(frame_sess, smi)
+    multi, multi_launches = phase_multi_device(frame_sess, smi)
+    torch.cuda.empty_cache()
     alpha, (alpha_classes, _, alpha_trav, _, alpha_inst), alpha_launches, \
         alpha_sess = phase_alpha(smi)
     split_alpha, split_launches, split_scene = phase_split_alpha(alpha_sess,
@@ -4665,6 +5025,7 @@ def main():
     engine_bake = phase_engine_bake_classes(baker, smi)
     bake_ab, bake_ab_launches = phase_engine_bake_ab(baker, smi)
     gathers = phase_gather(frame_sess, d1_hits, baker)
+    multi["bake"], m4_launches = phase_multi_device_bake(baker, smi)
     same_bake = phase_same_bake()
     engine_same = phase_engine_same_frame(smi)
     shade = gathers["b_shading_row"]
@@ -4703,7 +5064,7 @@ def main():
     runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
             *r2_launches, fbx_launches, anim_launches, viewer_launches,
             *engine_launches, *bake_ab_launches, *seeded_launches,
-            *split_launches]
+            *split_launches, *multi_launches, m4_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -4761,6 +5122,19 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    # the grid's alpha instantiation: no route sends sun rays to it, so its
+    # launches are phase A's check's
+    ga = alpha["grid_alpha"]["total"]
+    if ga["launches"] == 0:
+        raise SystemExit("chip_smoke: sun_any_hit_alpha never launched")
+    entries.append({
+        "name": "sun_any_hit_alpha", "route": "cuda",
+        "source": ENGINE_KERNELS["sun_any_hit"][0],
+        "replaces": ENGINE_KERNELS["sun_any_hit"][1],
+        "launches": ga["launches"], "max_abs_err": ga["max_abs_err"],
+        "ms": ga["ms"], "plain_ms": ga["plain_ms"],
+        "bound_ms": ga["bound_ms"], "bound_by": ga["bound_by"],
+        "library_ms": None})
     kernels = {"kernels": entries}
     instances = {instance_name(k): v
                  for k, v in {**opaque_inst, **alpha_inst}.items()}
@@ -4790,6 +5164,7 @@ def main():
                    "engine_bake_ab": bake_ab,
                    "engine_same_frame": engine_same,
                    "seeded_routes": seeded, "split_alpha": split_alpha,
+                   "multi_device": multi,
                    **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))

@@ -16,10 +16,16 @@ is the walk's own, so visibility equals traverse.any_hit on every lane.
 
 `sun_any_hit` launches csrc/sungrid.cu (persistent warps, each walking its
 own range of rays, a lane taking the range's next active ray when its ray
-ends) for CUDA tensors and runs `sun_any_hit_plain` (the JAX package's step, over the lanes
-still walking) for CPU tensors; it routes on the device alone. It is opaque
-only: alpha-tested sun rays stay on the per-ray walk. The JAX module's TPU
-machinery (lane quarantine, compaction phases, UNROLL) has no counterpart.
+ends) for CUDA tensors and runs `sun_any_hit_plain` (the JAX package's
+step, over the lanes still walking) for CPU tensors; it routes on the device
+alone. Given an `AlphaTest` (traverse.py) it applies the alpha test inside
+the walk, on each candidate before it ends the walk, as the JAX package's
+`sun_any_hit(accept_fn=...)` does: the kernel's alpha instantiation on CUDA
+tensors, the plain walk with the test as its accept_fn on CPU tensors. No
+JAX caller passes an accept_fn and no route of the port passes an alpha
+test (alpha-tested sun rays stay on the per-ray walk): it is there for the
+API. The JAX module's TPU machinery (lane quarantine, compaction phases,
+UNROLL) has no counterpart.
 """
 
 import ctypes
@@ -30,8 +36,9 @@ import numpy as np
 import torch
 
 from ..buildlib import build_shared_library, nvcc
+from ..scene.types import TRI_SHADE_WIDTH
 from .bvh import LEAF_SIZE, RECORD
-from .traverse import NVCC_FLAGS, moller_trumbore
+from .traverse import NVCC_FLAGS, AlphaTest, moller_trumbore
 
 KERNEL_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sungrid.cu"
 DONE = 0x7FFFFFFF           # index / next code: empty, chain end
@@ -41,8 +48,10 @@ _SUFZ_SLOT = 10 * _L + 1    # f32 max sun depth of this record and its tail
 _OWNZ_SLOT = 10 * _L + 2    # f32 max sun depth of this record alone
 
 # Launches of the grid kernel since the process started (or since a caller
-# last reset it). Only `_launch_kernel` adds to it.
+# last reset it), opaque and alpha-tested. Only `_launch_kernel` adds to
+# them.
 KERNEL_LAUNCHES = 0
+ALPHA_KERNEL_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,33 +253,49 @@ def kernel_library():
         lib.dxrpt_sun_any_hit.restype = ctypes.c_int
         lib.dxrpt_sun_any_hit.argtypes = [p, p, p, p, i32, i32,
                                           p, p, p, p, p, i64, p, p]
-        lib.dxrpt_sungrid_resident_warps.restype = ctypes.c_int
-        lib.dxrpt_sungrid_resident_warps.argtypes = []
+        lib.dxrpt_sun_any_hit_alpha.restype = ctypes.c_int
+        lib.dxrpt_sun_any_hit_alpha.argtypes = [p, p, p, p, i32, i32, p, p,
+                                                p, p, p, p, p, i64, p, p]
+        for name in ("dxrpt_sungrid_resident_warps",
+                     "dxrpt_sungrid_alpha_resident_warps"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = []
         _kernel = lib
     return _kernel
 
 
-def resident_warps() -> int:
-    """Warps of the grid kernel that one SM of the current CUDA device holds
-    at once (its persistent launch is this times the SM count)."""
-    warps = kernel_library().dxrpt_sungrid_resident_warps()
+def resident_warps(alpha: bool = False) -> int:
+    """Warps of the grid kernel (opaque, or the alpha-tested one) that one
+    SM of the current CUDA device holds at once (its persistent launch is
+    this times the SM count)."""
+    lib = kernel_library()
+    warps = (lib.dxrpt_sungrid_alpha_resident_warps() if alpha
+             else lib.dxrpt_sungrid_resident_warps())
     if warps <= 0:
         raise RuntimeError(f"sun grid kernel occupancy query failed: CUDA "
                            f"error {-warps}")
     return warps
 
 
-def _launch_kernel(grid: SunGrid, ray_o, ray_d, t_min, t_max, active):
+def _launch_kernel(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
+                   alpha: AlphaTest | None = None):
     """One launch over all rays on the current stream; does not
-    synchronise."""
-    global KERNEL_LAUNCHES
+    synchronise. With `alpha`, the alpha-tested instantiation."""
+    global KERNEL_LAUNCHES, ALPHA_KERNEL_LAUNCHES
     n, dev = ray_o.shape[0], ray_o.device
     s = grid.grid_size
-    for name, x, shape, dtype in (
-            ("grid.table", grid.table, (grid.num_rows, RECORD), torch.float32),
-            ("grid.index", grid.index, (s * s,), torch.int32),
-            ("grid.params", grid.params, (4,), torch.float32),
-            ("grid.basis", grid.basis, (3, 3), torch.float32)):
+    checks = [("grid.table", grid.table, (grid.num_rows, RECORD),
+               torch.float32),
+              ("grid.index", grid.index, (s * s,), torch.int32),
+              ("grid.params", grid.params, (4,), torch.float32),
+              ("grid.basis", grid.basis, (3, 3), torch.float32)]
+    if alpha is not None:
+        checks += [("alpha.tri_shade", alpha.tri_shade,
+                    (alpha.tri_shade.shape[0], TRI_SHADE_WIDTH),
+                    torch.float32),
+                   ("alpha.texels", alpha.texels,
+                    (alpha.texels.shape[0], 4), torch.float32)]
+    for name, x, shape, dtype in checks:
         if (tuple(x.shape) != shape or x.dtype != dtype or x.device != dev
                 or not x.is_contiguous()):
             raise ValueError(f"{name}: want contiguous {dtype} {shape} on "
@@ -279,15 +304,22 @@ def _launch_kernel(grid: SunGrid, ray_o, ray_d, t_min, t_max, active):
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    head = (grid.table.data_ptr(), grid.index.data_ptr(),
+            grid.params.data_ptr(), grid.basis.data_ptr(), s,
+            grid.num_rows + 8)
+    tail = (ray_o.data_ptr(), ray_d.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), active.data_ptr(), n, out.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kernel_library().dxrpt_sun_any_hit(
-            grid.table.data_ptr(), grid.index.data_ptr(),
-            grid.params.data_ptr(), grid.basis.data_ptr(), s,
-            grid.num_rows + 8, ray_o.data_ptr(), ray_d.data_ptr(),
-            t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
-            out.data_ptr(), stream)
-        KERNEL_LAUNCHES += 1
+        lib = kernel_library()
+        if alpha is None:
+            rc = lib.dxrpt_sun_any_hit(*head, *tail, stream)
+            KERNEL_LAUNCHES += 1
+        else:
+            rc = lib.dxrpt_sun_any_hit_alpha(
+                *head, alpha.tri_shade.data_ptr(), alpha.texels.data_ptr(),
+                *tail, stream)
+            ALPHA_KERNEL_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"sun grid kernel launch failed: CUDA error {rc}")
     return out
@@ -297,10 +329,10 @@ def _launch_kernel(grid: SunGrid, ray_o, ray_d, t_min, t_max, active):
 # The plain version
 # ---------------------------------------------------------------------------
 
-def _record_blocks(rec, o, d, t_min, t_max):
+def _record_blocks(rec, o, d, t_min, t_max, accept_fn=None):
     """(m, 12) bool: which of each record's 12 triangles block its ray
     within [t_min, t_max) — JAX `_intersect_leaf`'s test, expression for
-    expression."""
+    expression, and `& accept_fn(tid, u, v)` with an accept_fn."""
     L = _L
     v0x, v0y, v0z = rec[:, 0:L], rec[:, L:2 * L], rec[:, 2 * L:3 * L]
     e1x, e1y, e1z = rec[:, 3 * L:4 * L], rec[:, 4 * L:5 * L], rec[:, 5 * L:6 * L]
@@ -311,15 +343,22 @@ def _record_blocks(rec, o, d, t_min, t_max):
         (v0x, v0y, v0z), (e1x, e1y, e1z), (e2x, e2y, e2z))
     ok = ((tid >= 0) & det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t >= t_min[:, None]) & (t < t_max[:, None]))
+    if accept_fn is not None:
+        # ok & accept_fn(tid, u, v), the test taken at the candidates only
+        cand = ok.nonzero(as_tuple=True)
+        ok = ok.index_put(cand, accept_fn(tid[cand], u[cand], v[cand]))
     return ok
 
 
 def sun_any_hit_plain(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
-                      stats: dict | None = None):
+                      stats: dict | None = None, accept_fn=None):
     """The JAX package's walk: each step reads every walking lane's record,
     abandons the chain where its suffix-zmax is below the lane's threshold,
     tests the record where its own zmax is not, and moves on; a blocked lane
-    stops. Returns (N,) f32 visibility. With `stats`, adds the record visits
+    stops. accept_fn(tid, u, v) -> bool, any callable (an AlphaTest, or a
+    test's own), takes part in each record's test as in the JAX package's
+    leaf test: a triangle blocks only where it accepts. Returns (N,) f32
+    visibility. With `stats`, adds the record visits
     ("visits"), the records tested ("tested"), the filled triangles tested
     up to the first blocking one ("tri_tests"), the rows touched
     ("touched", a (rows,) bool mask), each lane's record visits
@@ -362,7 +401,7 @@ def sun_any_hit_plain(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
         if sel.numel():
             ln = lanes[sel]
             ok = _record_blocks(rec[sel], ray_o[ln], ray_d[ln], t_min[ln],
-                                t_max[ln])
+                                t_max[ln], accept_fn)
             hit[sel] = ok.any(dim=1)
         if stats is not None:
             filled = rec[sel, 9 * _L:10 * _L].view(torch.int32) >= 0
@@ -387,11 +426,15 @@ def sun_any_hit_plain(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
 # Entry point
 # ---------------------------------------------------------------------------
 
-def sun_any_hit(grid: SunGrid, ray_o, ray_d, t_min, t_max, active=None):
-    """Sun shadow visibility (N,) f32 in {0, 1}, 1 = unoccluded, opaque.
-    ray_d must be the sun direction the grid was built for (broadcast): the
-    triangle test runs in world space with these very components, so the
-    result equals traverse.any_hit's on the same rays."""
+def sun_any_hit(grid: SunGrid, ray_o, ray_d, t_min, t_max, active=None,
+                alpha=None):
+    """Sun shadow visibility (N,) f32 in {0, 1}, 1 = unoccluded. ray_d must
+    be the sun direction the grid was built for (broadcast): the triangle
+    test runs in world space with these very components, so the result
+    equals traverse.any_hit's on the same rays (with the same alpha test).
+    alpha: None (every triangle opaque), an AlphaTest (the kernel's alpha
+    instantiation on CUDA tensors), or on CPU tensors any accept_fn(tid, u,
+    v) callable; another callable on CUDA tensors raises."""
     n, dev = ray_o.shape[0], ray_o.device
     f32 = torch.float32
     ray_o = ray_o.to(f32).contiguous()
@@ -401,7 +444,12 @@ def sun_any_hit(grid: SunGrid, ray_o, ray_d, t_min, t_max, active=None):
     active = (torch.ones(n, dtype=torch.bool, device=dev) if active is None
               else active.contiguous())
     if dev.type == "cuda":
-        return _launch_kernel(grid, ray_o, ray_d, t_min, t_max, active)
+        if alpha is not None and not isinstance(alpha, AlphaTest):
+            raise TypeError(f"the grid kernel's alpha test is an AlphaTest, "
+                            f"not {type(alpha).__name__}")
+        return _launch_kernel(grid, ray_o, ray_d, t_min, t_max, active,
+                              alpha)
     if dev.type == "cpu":
-        return sun_any_hit_plain(grid, ray_o, ray_d, t_min, t_max, active)
+        return sun_any_hit_plain(grid, ray_o, ray_d, t_min, t_max, active,
+                                 accept_fn=alpha)
     raise ValueError(f"no sun grid walk for device {dev}")

@@ -1,14 +1,17 @@
 """Build native sources of the repository into shared libraries, at first use.
 
 Each library lands in `dxrpathtracer_tpu_torch/build/` (listed in .gitignore)
-under a name keyed by a hash of its source and its compile command, so an edit
-to either builds anew and a fresh checkout builds from the sources alone; the
+under a name keyed by a hash of its source, of every header it includes with
+`#include "..."` (found beside the including file or in a `-I` directory of
+the command, recursively) and of its compile command, so an edit to any of
+them builds anew and a fresh checkout builds from the sources alone; the
 compiler's report (stderr) is kept beside it as `<library>.log`. A failed
 build raises with the compiler's output; nothing falls back.
 """
 
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -27,13 +30,44 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_key(src: Path, command: list[str]) -> str:
+    """The hex digest a build of `src` with `command` is keyed by: the
+    source's bytes, each quoted include's path and bytes (once each, in
+    the order met) and the command."""
+    dirs = [Path(c[2:]) if len(c) > 2 else Path(n)
+            for c, n in zip(command, [*command[1:], ""])
+            if c.startswith("-I")]
+    key = hashlib.sha256()
+    seen, todo = set(), [Path(src)]
+    while todo:
+        path = todo.pop(0)
+        text = path.read_bytes()
+        key.update(str(len(text)).encode() + b"\0" + text)
+        for name in _INCLUDE.findall(text):
+            name = name.decode()
+            found = next((d / name for d in (path.parent, *dirs)
+                          if (d / name).is_file()), None)
+            if found is None:
+                raise FileNotFoundError(f"{path}: #include \"{name}\" not "
+                                        f"found beside it or in {dirs}")
+            found = found.resolve()
+            if found not in seen:
+                seen.add(found)
+                key.update(name.encode() + b"\0")
+                todo.append(found)
+    key.update("\0".join(command).encode())
+    return key.hexdigest()
+
+
 def build_shared_library(src: Path, stem: str, command: list[str],
                          timeout: float = 600.0) -> tuple[Path, str]:
     """Compile `src` with `command + ["-o", out, src]` unless the keyed
     library exists. Returns (library path, the compiler's stderr from the
     build that made it)."""
-    key = hashlib.sha256(src.read_bytes() + "\0".join(command).encode())
-    out = BUILD_DIR / f"lib{stem}_{key.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{stem}_{source_key(src, command)[:16]}.so"
     log = out.with_name(f"{out.name}.log")
     if out.exists():
         return out, log.read_text() if log.exists() else ""

@@ -85,6 +85,12 @@ def ggx_environment_brdf_scale_bias(n_dot_v, sqrt_roughness):
     return scale, bias
 
 
+def ggx_environment_brdf(spec_albedo, n_dot_v, sqrt_roughness):
+    """The split-sum environment BRDF: spec_albedo * scale + bias."""
+    scale, bias = ggx_environment_brdf_scale_bias(n_dot_v, sqrt_roughness)
+    return spec_albedo * scale[..., None] + bias[..., None]
+
+
 def calc_lighting(normal, light_dir, peak_irradiance, diffuse_albedo, specular_albedo,
                   roughness, position_ws, camera_pos_ws, ms_energy_compensation):
     """Per-analytic-light shading (BRDF.hlsl:241-261): Lambert diffuse + GGX

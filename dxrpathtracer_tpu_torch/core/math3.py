@@ -1,8 +1,9 @@
 """Batched 3-vector helpers on torch tensors.
 
-The port of the parts of dxrpathtracer_tpu/core/math3.py the path tracer uses.
-Vectors are (..., 3) float32. Matrices follow the reference's DirectXMath
-row-vector convention (SampleFramework12 SF12_Math.h).
+The port of dxrpathtracer_tpu/core/math3.py. Vectors are (..., 3) float32.
+Matrices follow the reference's DirectXMath row-vector convention
+(SampleFramework12 SF12_Math.h): points and directions are row vectors
+transformed as ``v @ M``, written out as multiply-adds.
 """
 
 import torch
@@ -104,6 +105,13 @@ def div(x, d):
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
+def vec3(x, y, z, dtype=torch.float32):
+    """(..., 3) from three broadcast components."""
+    return torch.stack(torch.broadcast_tensors(
+        torch.as_tensor(x, dtype=dtype), torch.as_tensor(y, dtype=dtype),
+        torch.as_tensor(z, dtype=dtype)), dim=-1)
+
+
 def dot(a, b):
     """Sum of the three products, left to right (as XLA reduces them; a
     torch reduction may take another order on another device)."""
@@ -124,13 +132,28 @@ def cross(a, b):
                         a0 * b1 - a1 * b0], dim=-1)
 
 
+def length(v):
+    return sqrt(torch.clamp_min(dot(v, v), 0.0))
+
+
 def normalize(v, eps=0.0):
     l = sqrt(torch.clamp_min(dot3(v, v, keepdims=True), eps))
     return v / l
 
 
+def safe_normalize(v):
+    """Normalize; zero vectors map to zero (no NaN)."""
+    l2 = dot3(v, v, keepdims=True)
+    inv = torch.where(l2 > 0.0, 1.0 / sqrt(torch.clamp_min(l2, 1e-37)), 0.0)
+    return v * inv
+
+
 def saturate(x):
     return torch.clamp(x, 0.0, 1.0)
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
 
 
 def smoothstep(edge0, edge1, x):
@@ -141,3 +164,43 @@ def smoothstep(edge0, edge1, x):
 def reflect(i, n):
     """HLSL reflect: i - 2*dot(i,n)*n (i points toward the surface)."""
     return i - 2.0 * dot3(i, n, keepdims=True) * n
+
+
+def transform_point(p, m):
+    """Row-vector transform of (..., 3) points by a (4, 4) matrix, with the
+    w divide."""
+    out = (p[..., 0:1] * m[0] + p[..., 1:2] * m[1] + p[..., 2:3] * m[2]
+           + m[3])
+    return out[..., :3] / out[..., 3:4]
+
+
+def transform_h(p_h, m):
+    """Row-vector transform of (..., 4) homogeneous points; no divide."""
+    return (p_h[..., 0:1] * m[0] + p_h[..., 1:2] * m[1]
+            + p_h[..., 2:3] * m[2] + p_h[..., 3:4] * m[3])
+
+
+def transform_dir(d, m):
+    """Row-vector transform of (..., 3) directions (no translation)."""
+    return (d[..., 0:1] * m[0, :3] + d[..., 1:2] * m[1, :3]
+            + d[..., 2:3] * m[2, :3])
+
+
+def luminance(rgb):
+    """Rec.709 luma as the reference's resolve and denoise shaders take
+    it."""
+    return dot(rgb, torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype,
+                                 device=rgb.device))
+
+
+def orthonormal_basis(n):
+    """A tangent frame (t, bt) around the unit normal n (branchless,
+    Frisvad-style)."""
+    sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0).to(n.dtype)
+    a = -1.0 / (sign + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack([1.0 + sign * n[..., 0] * n[..., 0] * a, sign * b,
+                     -sign * n[..., 0]], dim=-1)
+    bt = torch.stack([b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]],
+                     dim=-1)
+    return t, bt

@@ -1,15 +1,16 @@
 """Monte-Carlo direction sampling on torch tensors.
 
-The port of the parts of dxrpathtracer_tpu/core/sampling.py the path tracer
-uses (Sampling.hlsl:72-154): concentric disk mapping, cosine hemisphere and
-GGX visible-normal (VNDF) sampling, op for op the JAX versions. Branches are
+The port of dxrpathtracer_tpu/core/sampling.py (Sampling.hlsl:72-242):
+concentric disk mapping, cosine hemisphere and GGX visible-normal (VNDF)
+sampling, which the path tracer uses, and the sphere, hemisphere and cone
+samplers with the matching pdfs, op for op the JAX versions. Branches are
 masked selects so one call covers a whole ray wavefront.
 """
 
 import torch
 
 from .constants import Pi
-from .math3 import cos, cross, dot3, sin, sqrt
+from .math3 import cos, cross, div, dot, dot3, saturate, sin, sqrt
 
 
 def square_to_concentric_disk(x, y):
@@ -88,3 +89,58 @@ def sample_ggx_visible_normal(wo, ax, ay, u1, u2):
     n = torch.stack([ax * n[..., 0], ay * n[..., 1],
                      torch.clamp_min(n[..., 2], 0.0)], dim=-1)
     return n / _norm(n)
+
+
+def sample_direction_sphere(u1, u2):
+    """Uniform sphere (Sampling.hlsl:157-166)."""
+    z = u1 * 2.0 - 1.0
+    r = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = 2.0 * Pi * u2
+    return torch.stack([r * cos(phi), r * sin(phi), z], dim=-1)
+
+
+def sample_direction_hemisphere(u1, u2):
+    """Uniform hemisphere around +z (Sampling.hlsl:169-178)."""
+    z = u1
+    r = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = 2.0 * Pi * u2
+    return torch.stack([r * cos(phi), r * sin(phi), z], dim=-1)
+
+
+def sample_direction_cone(u1, u2, cos_theta_max):
+    """Uniform cone around +z (Sampling.hlsl:199-205)."""
+    cos_theta = (1.0 - u1) + u1 * cos_theta_max
+    sin_theta = sqrt(1.0 - cos_theta * cos_theta)
+    phi = u2 * 2.0 * Pi
+    return torch.stack([cos(phi) * sin_theta, sin(phi) * sin_theta,
+                        cos_theta], dim=-1)
+
+
+def pdf_cosine_hemisphere(cos_theta):
+    return div(cos_theta, Pi)
+
+
+def pdf_cosine_hemisphere_dir(normal, sample_dir):
+    return div(saturate(dot(normal, sample_dir)), Pi)
+
+
+def pdf_hemisphere():
+    return 1.0 / (Pi * 2.0)
+
+
+def pdf_sphere():
+    return 1.0 / (Pi * 4.0)
+
+
+def pdf_cone(cos_theta_max):
+    return 1.0 / (2.0 * Pi * (1.0 - cos_theta_max))
+
+
+def pdf_ggx(n, h, v, roughness):
+    """SampleDirectionGGX_PDF (Sampling.hlsl:233-242)."""
+    n_dot_h = saturate(dot(n, h))
+    h_dot_v = saturate(dot(h, v))
+    m2 = roughness * roughness
+    x = n_dot_h * n_dot_h * (m2 - 1.0) + 1.0
+    d = m2 / (Pi * x * x)
+    return d * n_dot_h / (4.0 * h_dot_v)

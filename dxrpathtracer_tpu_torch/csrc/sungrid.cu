@@ -53,6 +53,16 @@
 // holds 2.0x the mean range's steps) and lose where they crowd into a few
 // (the bake's depth-1 class: 3.1x).
 //
+// Alpha testing (the kAlpha instantiation, entry dxrpt_sun_any_hit_alpha):
+// a triangle that passes the geometric test blocks the ray only if the
+// alpha test of csrc/alpha.cuh accepts it at the hit's (u, v), inside the
+// walk and before a blocker ends it, as the JAX package's
+// sun_any_hit(accept_fn=...) applies its accept_fn in the leaf test
+// (accel/sunspace.py:267-268, traverse.py::_intersect_leaf). No JAX caller
+// passes one, and no route of the port sends sun rays here; its plain
+// version is accel/sunspace.py::sun_any_hit_plain with accept_fn. The
+// opaque instantiation compiles without any of it.
+//
 // Exactness. Build with --fmad=false and without fast-math. The projection
 // sums left to right, thr = (origin . w) + t_min, the cell is floor, then
 // clip, then conversion to int32 (NaN to 0), and the triangle test is the
@@ -65,6 +75,8 @@
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "alpha.cuh"
 
 namespace {
 
@@ -120,10 +132,13 @@ struct Ray {
 };
 
 // Whether the triangle (v0, e1, e2, id) blocks the ray within [tmin, tmax):
-// Moller-Trumbore as csrc/traverse.cu's `triangle`.
+// Moller-Trumbore as csrc/traverse.cu's `triangle`, then, with kAlpha, the
+// alpha test at its (u, v).
+template <bool kAlpha>
 __device__ __forceinline__ bool triangle_blocks(
         float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
-        float e2x, float e2y, float e2z, int32_t id, const Ray& r) {
+        float e2x, float e2y, float e2z, int32_t id, const Ray& r,
+        const AlphaScene& alpha) {
     const float px = r.dy * e2z - r.dz * e2y;
     const float py = r.dz * e2x - r.dx * e2z;
     const float pz = r.dx * e2y - r.dy * e2x;
@@ -139,8 +154,10 @@ __device__ __forceinline__ bool triangle_blocks(
     const float qz = sx * e1y - sy * e1x;
     const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
     const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    return id >= 0 && det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
-           && t >= r.tmin && t < r.tmax;
+    bool ok = id >= 0 && det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
+              && t >= r.tmin && t < r.tmax;
+    if (kAlpha && ok) ok = alpha_accept(alpha, id, u, v);
+    return ok;
 }
 
 // Slots first + kGroup * s (s < kN) of the record's ten fields.
@@ -169,22 +186,26 @@ __device__ __forceinline__ void load_slots(const float* __restrict__ rec,
 }
 
 // Whether one of the loaded slots blocks the ray (every slot is tested).
-template <int kN>
+template <bool kAlpha, int kN>
 __device__ __forceinline__ bool slots_block(const float (&fld)[kFields][kN],
-                                            const Ray& r) {
+                                            const Ray& r,
+                                            const AlphaScene& alpha) {
     bool hit = false;
 #pragma unroll
     for (int s = 0; s < kN; ++s)
-        hit |= triangle_blocks(fld[0][s], fld[1][s], fld[2][s], fld[3][s],
-                               fld[4][s], fld[5][s], fld[6][s], fld[7][s],
-                               fld[8][s], __float_as_int(fld[9][s]), r);
+        hit |= triangle_blocks<kAlpha>(
+            fld[0][s], fld[1][s], fld[2][s], fld[3][s], fld[4][s], fld[5][s],
+            fld[6][s], fld[7][s], fld[8][s], __float_as_int(fld[9][s]), r,
+            alpha);
     return hit;
 }
 
 // params: gx0, gy0, inv_fx, inv_fy; basis: rows ax, ay, w. Warp w owns rays
-// [w * span, (w + 1) * span) of n; span is a multiple of 32.
+// [w * span, (w + 1) * span) of n; span is a multiple of 32. alpha: the
+// scene's shading rows and texels (read by the kAlpha instantiation only).
+template <bool kAlpha>
 __global__ void __launch_bounds__(kBlock)
-sungrid_kernel(const float* __restrict__ table,
+sungrid_kernel(AlphaScene alpha, const float* __restrict__ table,
                const int32_t* __restrict__ index,
                const float* __restrict__ params,
                const float* __restrict__ basis, int grid_size,
@@ -288,11 +309,11 @@ sungrid_kernel(const float* __restrict__ table,
             next = __float_as_int(tail.x);
             walk_on = !(tail.y < thr);  // suffix-zmax: nothing further
             if (walk_on && tail.z >= thr) {  // own-zmax: test the record
-                hit = slots_block<kBatch>(fld, r);
+                hit = slots_block<kAlpha, kBatch>(fld, r, alpha);
 #pragma unroll 1
                 for (int b = 1; b < kSlots / kBatch && !hit; ++b) {
                     load_slots<kBatch>(rec, j + kGroup * kBatch * b, fld);
-                    hit = slots_block<kBatch>(fld, r);
+                    hit = slots_block<kAlpha, kBatch>(fld, r, alpha);
                 }
             }
         }
@@ -311,16 +332,19 @@ sungrid_kernel(const float* __restrict__ table,
 }
 
 // Warps of the kernel that one SM of the current device holds at once.
+template <bool kAlpha>
 cudaError_t resident_per_sm(int* warps) {
     int blocks = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, sungrid_kernel, kBlock, 0);
+        &blocks, sungrid_kernel<kAlpha>, kBlock, 0);
     *warps = blocks * kWarps;
     return err;
 }
 
 // The persistent warps of the current device (its resident warps per SM
-// times its SMs), worked out at the first launch on each device and kept.
+// times its SMs), worked out at the first launch on each device and kept
+// (for each instantiation).
+template <bool kAlpha>
 cudaError_t resident_grid(int64_t* warps) {
     constexpr int kMaxDevices = 64;
     static std::atomic<int64_t> cache[kMaxDevices];  // 0: not yet known
@@ -333,7 +357,7 @@ cudaError_t resident_grid(int64_t* warps) {
         int sms = 0, per_sm = 0;
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      device);
-        if (err == cudaSuccess) err = resident_per_sm(&per_sm);
+        if (err == cudaSuccess) err = resident_per_sm<kAlpha>(&per_sm);
         if (err != cudaSuccess) return err;
         if (per_sm < 1) return cudaErrorLaunchOutOfResources;
         w = static_cast<int64_t>(per_sm) * sms;
@@ -341,6 +365,38 @@ cudaError_t resident_grid(int64_t* warps) {
     }
     *warps = w;
     return cudaSuccess;
+}
+
+template <bool kAlpha>
+int launch(const AlphaScene& alpha, const float* table, const int32_t* index,
+           const float* params, const float* basis, int32_t grid_size,
+           int32_t max_iters, const float* ray_o, const float* ray_d,
+           const float* t_min, const float* t_max, const uint8_t* active,
+           int64_t n, float* out, void* stream) {
+    if (n <= 0) return 0;
+    if (grid_size < 1 || max_iters < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int64_t resident = 0;
+    const cudaError_t err = resident_grid<kAlpha>(&resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // each warp takes an equal run of whole 32-ray fetches, and no more
+    // warps are launched than the rays fill
+    const int64_t fetches = (n + 31) / 32;
+    const int64_t per_warp = (fetches + resident - 1) / resident;
+    const int64_t warps = (fetches + per_warp - 1) / per_warp;
+    const int64_t blocks = (warps + kWarps - 1) / kWarps;
+    sungrid_kernel<kAlpha><<<static_cast<unsigned>(blocks), kBlock, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        alpha, table, index, params, basis, grid_size, max_iters, ray_o,
+        ray_d, t_min, t_max, active, n, per_warp * 32, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAlpha>
+int resident_warps() {
+    int warps = 0;
+    const cudaError_t err = resident_per_sm<kAlpha>(&warps);
+    return err != cudaSuccess ? -static_cast<int>(err) : warps;
 }
 
 }  // namespace
@@ -355,30 +411,34 @@ extern "C" int dxrpt_sun_any_hit(const float* table, const int32_t* index,
                                  const float* t_min, const float* t_max,
                                  const uint8_t* active, int64_t n, float* out,
                                  void* stream) {
-    if (n <= 0) return 0;
-    if (grid_size < 1 || max_iters < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    int64_t resident = 0;
-    const cudaError_t err = resident_grid(&resident);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // each warp takes an equal run of whole 32-ray fetches, and no more
-    // warps are launched than the rays fill
-    const int64_t fetches = (n + 31) / 32;
-    const int64_t per_warp = (fetches + resident - 1) / resident;
-    const int64_t warps = (fetches + per_warp - 1) / per_warp;
-    const int64_t blocks = (warps + kWarps - 1) / kWarps;
-    sungrid_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        table, index, params, basis, grid_size, max_iters, ray_o, ray_d,
-        t_min, t_max, active, n, per_warp * 32, out);
-    return static_cast<int>(cudaGetLastError());
+    return launch<false>(AlphaScene{nullptr, nullptr}, table, index, params,
+                         basis, grid_size, max_iters, ray_o, ray_d, t_min,
+                         t_max, active, n, out, stream);
 }
 
-// Warps of the kernel that one SM of the current device holds at once (the
-// persistent launch is this times the SM count), or minus the CUDA error
-// code.
+// The same with the alpha test: tri_shade (T, 64) f32 shading rows and
+// texels (texels, 4) f32, the scene's (both non-null).
+extern "C" int dxrpt_sun_any_hit_alpha(
+        const float* table, const int32_t* index, const float* params,
+        const float* basis, int32_t grid_size, int32_t max_iters,
+        const float* tri_shade, const float* texels, const float* ray_o,
+        const float* ray_d, const float* t_min, const float* t_max,
+        const uint8_t* active, int64_t n, float* out, void* stream) {
+    if (tri_shade == nullptr || texels == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return launch<true>(AlphaScene{tri_shade, texels}, table, index, params,
+                        basis, grid_size, max_iters, ray_o, ray_d, t_min,
+                        t_max, active, n, out, stream);
+}
+
+// Warps of the opaque kernel that one SM of the current device holds at
+// once (the persistent launch is this times the SM count), or minus the
+// CUDA error code.
 extern "C" int dxrpt_sungrid_resident_warps() {
-    int warps = 0;
-    const cudaError_t err = resident_per_sm(&warps);
-    return err != cudaSuccess ? -static_cast<int>(err) : warps;
+    return resident_warps<false>();
+}
+
+// The same for the alpha-tested kernel.
+extern "C" int dxrpt_sungrid_alpha_resident_warps() {
+    return resident_warps<true>();
 }

@@ -55,7 +55,8 @@
 // hits from outside the loop (integrator.py::_punch_through_closest, for the
 // TPU's lockstep loop, where an in-loop tap is paid on every leaf slot of
 // every lane); a walk per thread or per warp pays the tap only at
-// candidates. The opaque instantiations compile without any of this.
+// candidates. The opaque instantiations compile without any of this. The
+// test itself (`alpha_accept`) is csrc/alpha.cuh's, shared with the grid.
 //
 // Exactness. Build with --fmad=false and without fast-math: every product
 // is rounded on its own and every division is IEEE, as in the plain torch
@@ -69,6 +70,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "alpha.cuh"
+
 namespace {
 
 constexpr int kRecord = 128;      // f32 slots per record
@@ -79,22 +82,6 @@ constexpr unsigned kWarp = 0xFFFFFFFFu;
 constexpr float kBig = 3e38f;     // "no hit" key
 constexpr float kEps = 1e-12f;    // determinant threshold
 constexpr int32_t kAlphaTidBit = 1 << 30;
-// the packed shading row (scene/types.py): 14 f32 per vertex block with the
-// UV at +6, the packed material meta (int32) from slot 44: the opacity
-// texture's (base, w, h) at meta[12..14], has_opacity at meta[18]
-constexpr int kShadeRow = 64;
-constexpr int kShadeVtx = 14;
-constexpr int kShadeUv = 6;
-constexpr int kShadeMeta = 44;
-constexpr int kMetaOpacity = 12;  // 3 * PACKED_SLOTS.index("opacity")
-constexpr int kMetaHasOpacity = 18;
-constexpr float kAlphaCutoff = 0.35f;
-
-struct AlphaScene {
-    const float* __restrict__ tri_shade;  // (T, 64) f32 shading rows
-    const float* __restrict__ texels;     // (texels, 4) f32 atlas pool
-};
-
 __device__ __forceinline__ float nan_min(float a, float b) {
     float r;
     asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
@@ -165,55 +152,6 @@ __device__ __forceinline__ bool triangle(const float f[10], const Ray& r,
     // testing's per-triangle accept_fn verdict joins this test
     return id >= 0 && det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
            && t >= r.tmin && t < best_t;
-}
-
-// floor-mod (the sign of the divisor, as torch.remainder and jnp.mod)
-__device__ __forceinline__ int32_t floor_mod(int32_t a, int32_t b) {
-    const int32_t r = a % b;
-    return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
-}
-
-// The alpha test of triangle id at barycentrics (u, v): true when the
-// triangle's material has no opacity map or its opacity there is >= 0.35.
-// The plain version is render/integrator.py::_make_alpha_test; the
-// expressions and their order are bilinear_from_meta's.
-__device__ __forceinline__ bool alpha_accept(const AlphaScene& a,
-                                             int32_t id, float u, float v) {
-    const float* __restrict__ row =
-        a.tri_shade + static_cast<int64_t>(id) * kShadeRow;
-    const int32_t* __restrict__ meta =
-        reinterpret_cast<const int32_t*>(row + kShadeMeta);
-    if (__ldg(meta + kMetaHasOpacity) == 0) return true;
-    const int32_t base = __ldg(meta + kMetaOpacity);
-    const int32_t w = __ldg(meta + kMetaOpacity + 1);
-    const int32_t h = __ldg(meta + kMetaOpacity + 2);
-    const float bw = 1.0f - u - v;
-    float uv[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-        uv[c] = __ldg(row + kShadeUv + c) * bw
-                + __ldg(row + kShadeVtx + kShadeUv + c) * u
-                + __ldg(row + 2 * kShadeVtx + kShadeUv + c) * v;
-    const float x = uv[0] * static_cast<float>(w) - 0.5f;
-    const float y = uv[1] * static_cast<float>(h) - 0.5f;
-    const float x0 = floorf(x);
-    const float y0 = floorf(y);
-    const float fx = x - x0;
-    const float fy = y - y0;
-    const int32_t x0i = floor_mod(__float2int_rz(x0), w);
-    const int32_t x1i = floor_mod(x0i + 1, w);
-    const int32_t y0i = floor_mod(__float2int_rz(y0), h);
-    const int32_t y1i = floor_mod(y0i + 1, h);
-    auto texel = [&](int32_t yi, int32_t xi) {
-        return __ldg(a.texels + static_cast<int64_t>(base + yi * w + xi) * 4);
-    };
-    const float t00 = texel(y0i, x0i);
-    const float t10 = texel(y0i, x1i);
-    const float t01 = texel(y1i, x0i);
-    const float t11 = texel(y1i, x1i);
-    const float top = t00 + (t10 - t00) * fx;
-    const float bot = t01 + (t11 - t01) * fx;
-    return top + (bot - top) * fy >= kAlphaCutoff;
 }
 
 // ---------------------------------------------------------------------------

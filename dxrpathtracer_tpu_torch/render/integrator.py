@@ -803,17 +803,24 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
 
 
 def raygen(settings: AppSettings, frame: FrameConstants, width: int,
-           height: int, device):
+           height: int, device, row_offset: int = 0, total_height=None):
     """RaygenShader's primary-ray setup (RayTrace.hlsl:92-127): CMJ pixel
     jitter (set 0) + InvViewProjection un-projection with y-flip. Returns
     (ray_start, ray_dir, ray_len, pixel_idx) flat over height*width rays in
-    row-major order; pixel_idx = y * width + x as int64 (uint32 values)."""
+    row-major order; pixel_idx = (y + row_offset) * width + x as int64
+    (uint32 values). For a row shard (parallel/mesh.py) `height` is its row
+    count, `row_offset` its first row and `total_height` the frame's: the
+    pixel indices and the NDC stay the frame's."""
     s = settings
     f32 = torch.float32
-    yy, xx = torch.meshgrid(torch.arange(height, dtype=f32, device=device),
-                            torch.arange(width, dtype=f32, device=device),
-                            indexing="ij")
-    pixel_idx = torch.arange(height * width, dtype=torch.int64, device=device)
+    th = height if total_height is None else int(total_height)
+    row_offset = int(row_offset)
+    yy, xx = torch.meshgrid(
+        torch.arange(row_offset, row_offset + height, dtype=f32,
+                     device=device),
+        torch.arange(width, dtype=f32, device=device), indexing="ij")
+    pixel_idx = torch.arange(row_offset * width, (row_offset + height) * width,
+                             dtype=torch.int64, device=device)
 
     # set 0: pixel jitter
     jitter = cmj.sample_cmj_2d(frame.curr_sample_idx, int(s.sqrt_num_samples),
@@ -822,7 +829,7 @@ def raygen(settings: AppSettings, frame: FrameConstants, width: int,
     py = yy.reshape(-1) + jitter[..., 1]
 
     ncd_x = div(px, width * 0.5) - 1.0
-    ncd_y = -(div(py, height * 0.5) - 1.0)
+    ncd_y = -(div(py, th * 0.5) - 1.0)
 
     ivp = frame.inv_view_projection
 
@@ -869,7 +876,8 @@ def _untile_order(x, height: int, width: int, ty: int, tx: int):
 def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
                   frame: FrameConstants, width: int, height: int, accum,
                   sun_grid=None, proxy=None, cut=None, history=None,
-                  raster=None, alpha_bvh=None):
+                  raster=None, alpha_bvh=None, row_offset: int = 0,
+                  total_height=None, accum_sample_idx=None):
     """One progressive sample over the whole frame: raygen + trace + running
     mean (RaygenShader, RayTrace.hlsl:92-149). Returns the new accumulation
     (height, width, 3) f32, and with a `history` (accumulation, the new
@@ -878,9 +886,17 @@ def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     index, so the CMJ samples are the row-major frame's) and the radiance
     is put back in row-major order; `sun_grid`, `proxy`, `cut` and
     `history` (in the lanes' order) and `alpha_bvh` go to trace_paths, and
-    `raster` where its tiles are the lanes' tiles."""
+    `raster` where its tiles are the lanes' tiles.
+
+    Row sharding (parallel/mesh.py): `height` is the shard's row count,
+    `row_offset` its first row and `total_height` the frame's, so pixel
+    indices and NDC stay the frame's. Sample sharding: the caller gives
+    the shard's global sample index in `frame.curr_sample_idx` (the CMJ
+    index) and the samples its running mean holds so far in
+    `accum_sample_idx` (the lerp's)."""
+    th = height if total_height is None else int(total_height)
     ray_start, ray_dir, ray_len, pixel_idx = raygen(
-        settings, frame, width, height, accum.device)
+        settings, frame, width, height, accum.device, row_offset, th)
     dims = (_packet_tile_dims(height, width)
             if settings.enable_packet_traversal else None)
     rays = (ray_start, ray_dir, ray_len, pixel_idx)
@@ -889,7 +905,7 @@ def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     if raster is not None and (raster.ty, raster.tx) != dims:
         raster = None
     radiance = trace_paths(scene, bvh, ray_bvh, sky_cube, settings, frame,
-                           *rays, width * height, first_set_idx=1,
+                           *rays, width * th, first_set_idx=1,
                            sun_grid=sun_grid, proxy=proxy, cut=cut,
                            packet_coherent=dims is not None, history=history,
                            raster=raster, alpha_bvh=alpha_bvh)
@@ -898,7 +914,8 @@ def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     if dims is not None:
         radiance = _untile_order(radiance, height, width, *dims)
     radiance = radiance.reshape(height, width, 3)
-    idx = np.float32(frame.curr_sample_idx)
+    idx = np.float32(frame.curr_sample_idx if accum_sample_idx is None
+                     else accum_sample_idx)
     lerp_factor = float(idx / (idx + np.float32(1.0)))  # f32, as the reference
     accum = radiance + (accum - radiance) * lerp_factor
     return accum if history is None else (accum, history)

@@ -13,8 +13,13 @@ normal), trained by the JAX package (tools/train_denoiser.py):
 The public function keeps the JAX package's (H, W, C) layout; the module
 runs NCHW inside. TF32 stays off (dxrpathtracer_tpu_torch/__init__.py), so
 the convolutions run in full float32.
+
+The training API's two functions: `init_net` (the JAX `init_params`
+scheme, drawn from a torch.Generator: JAX's threefry draws are not
+reproduced) and `save_net` (the weight file the JAX `load_params` reads).
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -54,11 +59,46 @@ class DenoiserNet(nn.Module):
         return self.layers[-1](x)
 
 
-def load_net(device) -> DenoiserNet:
-    """The network with the JAX package's trained weights, on `device`."""
+def load_net(device, path=None) -> DenoiserNet:
+    """The network with the weights of `path` (a save_net or JAX
+    save_params file), by default the JAX package's trained ones, on
+    `device`."""
     net = DenoiserNet()
-    net.load_state_dict(denoiser_params_from_numpy(load_denoiser_weights()))
+    net.load_state_dict(denoiser_params_from_numpy(
+        load_denoiser_weights(path)))
     return net.to(device).eval()
+
+
+@torch.no_grad()
+def init_net(generator: torch.Generator) -> DenoiserNet:
+    """A freshly initialised network, as the JAX package's init_params:
+    He-normal 3x3 convs (std sqrt(2 / (9 cin))) drawn from `generator` in
+    HWIO order, zero biases, and a zero head, so that the net starts as the
+    identity (learned_denoise then returns the guided filter's output)."""
+    net = DenoiserNet()
+    cin = IN_CHANNELS
+    for conv, (cout, _dil) in zip(net.layers, ARCH):
+        w = torch.randn((3, 3, cin, cout), generator=generator,
+                        dtype=torch.float32) * float(np.sqrt(2.0 / (9 * cin)))
+        conv.weight.copy_(w.permute(3, 2, 0, 1))
+        conv.bias.zero_()
+        cin = cout
+    net.layers[-1].weight.zero_()
+    net.layers[-1].bias.zero_()
+    return net
+
+
+def save_net(net: DenoiserNet, path):
+    """Write the network's weights in the JAX package's layout (num_layers,
+    w{i} HWIO, b{i}; np.savez_compressed), which its load_params and this
+    module's load_net read: the inverse of
+    convert.denoiser_params_from_numpy."""
+    arrs = {"num_layers": np.int32(len(net.layers))}
+    for i, conv in enumerate(net.layers):
+        arrs[f"w{i}"] = np.ascontiguousarray(
+            conv.weight.detach().cpu().numpy().transpose(2, 3, 1, 0))
+        arrs[f"b{i}"] = conv.bias.detach().cpu().numpy()
+    np.savez_compressed(path, **arrs)
 
 
 def make_features(img, albedo, normal, valid):

@@ -196,22 +196,28 @@ def bin_pairs_host(bboxes, width, slab_h, row0, ty, tx):
 
 
 def build_raster_bins(positions, tri_idx, view_proj, near, width, height,
-                      ty, tx, tri_table, opaque_tris=None) -> RasterBins:
+                      ty, tx, tri_table, opaque_tris=None, row0: int = 0,
+                      rows=None) -> RasterBins:
     """The CSR bins of a width x height frame in (ty, tx) tiles (CPU
     tensors) for the camera `view_proj` (4x4, row-vector convention) with
     near plane `near`; `tri_table` is build_tri_table's rows, numpy or a
     tensor (kept as given). opaque_tris ((T,) bool) bins only the
     triangles it marks, as the JAX session masks the projected boxes for
-    the split alpha route; the bins are then opaque_only."""
+    the split alpha route; the bins are then opaque_only. With `rows`, the
+    bins of the row block [row0, row0 + rows) alone (a row shard of
+    parallel/mesh.py, its tiles in its own lane order); the projection
+    spans the whole frame either way."""
     positions = np.asarray(positions)
     tri_idx = np.asarray(tri_idx)
+    rows = height if rows is None else int(rows)
     bboxes = project_tri_bboxes(positions, tri_idx, view_proj, near, width,
                                 height)
     if opaque_tris is not None:
         ok, *rest = bboxes
         bboxes = (ok & np.asarray(opaque_tris, bool), *rest)
-    tri_s, tile_s, _, _ = bin_pairs_host(bboxes, width, height, 0, ty, tx)
-    n_tiles = (width // tx) * (height // ty)
+    tri_s, tile_s, _, _ = bin_pairs_host(bboxes, width, rows, int(row0), ty,
+                                         tx)
+    n_tiles = (width // tx) * (rows // ty)
     if len(tri_s) >= 2 ** 31:
         raise ValueError(f"{len(tri_s)} raster pairs exceed int32")
     start = np.zeros(n_tiles + 1, np.int64)

@@ -72,8 +72,11 @@ def _build(sources: dict) -> dict:
     the wrappers' own libraries) and `sources`', built at once."""
     def one(item):
         (build, kernel), src = item
+        # the alt copies include this tree's headers (csrc/alpha.cuh)
         path, log = build_shared_library(
-            Path(src), f"{kernel}_{build}", [nvcc(), *traverse.NVCC_FLAGS])
+            Path(src), f"{kernel}_{build}",
+            [nvcc(), *traverse.NVCC_FLAGS, "-I",
+             str(Path(packet.KERNEL_SOURCE).parent)])
         return (build, kernel), (ctypes.CDLL(str(path)), log)
 
     with ThreadPoolExecutor(len(sources) + len(KERNELS)) as pool:

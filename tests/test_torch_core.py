@@ -3,7 +3,10 @@
 Inputs are made with numpy from a seed and handed to both packages. CMJ must
 match bit for bit; the float sampling and BRDF functions within rtol 1e-6,
 atol 1e-7 (both sides are float32; the sampling tests share XLA's sin/cos, see
-`jax_primitives`).
+`jax_primitives`). The helpers nothing in the renderer calls (math3's
+vec3, length, safe_normalize, lerp, transforms, luminance, orthonormal
+basis; the sphere, hemisphere and cone samplers and the six pdfs;
+ggx_environment_brdf) bit for bit, the samplers with XLA's sin and cos.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from dxrpathtracer_tpu.core import brdf as jbrdf  # noqa: E402
 from dxrpathtracer_tpu.core import cmj as jcmj  # noqa: E402
+from dxrpathtracer_tpu.core import math3 as jmath3  # noqa: E402
 from dxrpathtracer_tpu.core import sampling as jsampling  # noqa: E402
 from dxrpathtracer_tpu_torch.core import brdf as tbrdf  # noqa: E402
 from dxrpathtracer_tpu_torch.core import cmj as tcmj  # noqa: E402
@@ -166,3 +170,83 @@ def test_brdf_functions(name):
                           1.0 + rng.random((n, 3), dtype=np.float32)),
     }[name]
     _assert_close(*_both(getattr(jbrdf, name), getattr(tbrdf, name), *args))
+
+
+def _bits_equal(refs, gots):
+    for r, g in zip(refs, gots):
+        r = np.asarray(r, np.float32)
+        assert r.shape == g.shape, (r.shape, g.shape)
+        np.testing.assert_array_equal(g.view(np.int32), r.view(np.int32))
+
+
+def _helper_args(name, rng):
+    n = 4096
+    v = rng.standard_normal((n, 3)).astype(np.float32)
+    v[:4] = 0.0  # zero vectors: safe_normalize's 0
+    m = rng.standard_normal((4, 4)).astype(np.float32)
+    m[3, 3] = 7.0  # w away from 0
+    unit = _unit(rng, n)
+    unit[:4] = ((0, 0, 1), (0, 0, -1), (1, 0, 0), (0, 0, 0.0))
+    return {
+        "vec3": (v[:, 0], v[:, 1], np.float32(2.5)),
+        "length": (v,),
+        "safe_normalize": (v,),
+        "lerp": (v, _unit(rng, n), rng.random((n, 1), dtype=np.float32)),
+        "transform_point": (v, m),
+        "transform_h": (rng.standard_normal((n, 4)).astype(np.float32), m),
+        "transform_dir": (v, m),
+        "luminance": (rng.gamma(2.0, 1.0, (n, 3)).astype(np.float32),),
+        "orthonormal_basis": (unit,),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "vec3", "length", "safe_normalize", "lerp", "transform_point",
+    "transform_h", "transform_dir", "luminance", "orthonormal_basis"])
+def test_math3_helpers_bit_exact(name):
+    args = _helper_args(name, np.random.default_rng(14))
+    if name == "vec3":
+        ref = jmath3.vec3(*(jnp.asarray(a) for a in args))
+        got = tmath3.vec3(*(torch.from_numpy(np.asarray(a)) for a in args))
+        _bits_equal([np.asarray(ref)], [got.numpy()])
+        return
+    _bits_equal(*_both(getattr(jmath3, name), getattr(tmath3, name), *args))
+
+
+@pytest.mark.parametrize("name", [
+    "sample_direction_sphere", "sample_direction_hemisphere",
+    "sample_direction_cone", "pdf_cosine_hemisphere",
+    "pdf_cosine_hemisphere_dir", "pdf_cone", "pdf_ggx"])
+def test_sampling_helpers_bit_exact(jax_primitives, name):
+    rng = np.random.default_rng(15)
+    n = 4096
+    u1, u2 = rng.random((2, n), dtype=np.float32)
+    u1[:3], u2[:3] = (0.0, 1.0, 0.5), (0.0, 1.0, 0.25)
+    ctm = rng.uniform(0.5, 0.999, n).astype(np.float32)
+    nrm, l, v = _unit(rng, n), _unit(rng, n), _unit(rng, n)
+    h = ((l + v) / np.linalg.norm(l + v, axis=1, keepdims=True)).astype(
+        np.float32)
+    args = {
+        "sample_direction_sphere": (u1, u2),
+        "sample_direction_hemisphere": (u1, u2),
+        "sample_direction_cone": (u1, u2, ctm),
+        "pdf_cosine_hemisphere": (rng.uniform(-1, 1, n).astype(np.float32),),
+        "pdf_cosine_hemisphere_dir": (nrm, l),
+        "pdf_cone": (ctm,),
+        "pdf_ggx": (nrm, h, v, rng.uniform(0.02, 1.0, n).astype(np.float32)),
+    }[name]
+    _bits_equal(*_both(getattr(jsampling, name), getattr(tsampling, name),
+                       *args))
+
+
+def test_constant_pdfs_and_environment_brdf():
+    assert tsampling.pdf_hemisphere() == jsampling.pdf_hemisphere()
+    assert tsampling.pdf_sphere() == jsampling.pdf_sphere()
+    assert tsampling.pdf_cone(0.9) == jsampling.pdf_cone(0.9)
+    rng = np.random.default_rng(16)
+    n = 4096
+    spec = rng.random((n, 3), dtype=np.float32)
+    ndv = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    sr = np.sqrt(rng.uniform(0.02, 1.0, n)).astype(np.float32)
+    _bits_equal(*_both(jbrdf.ggx_environment_brdf, tbrdf.ggx_environment_brdf,
+                       spec, ndv, sr))

@@ -8,7 +8,11 @@ numpy seed.
     (exp and log1p are library calls that may differ by an ulp);
   - learned_denoise with the repository's weights, on one tile and on a
     multi-tile case (small tile and overlap), within rtol 1e-4, atol 1e-5:
-    convolutions sum in another order than XLA's.
+    convolutions sum in another order than XLA's;
+  - the training API: init_net keeps JAX init_params' scheme (shapes,
+    He-normal std, zero biases and head, deterministic per seed); save_net
+    -> JAX load_params -> apply_net equals the port's forward within the
+    learned tolerance, and load_net reads it back exactly.
 """
 
 import numpy as np
@@ -116,3 +120,66 @@ def test_learned_matches_jax(shape, tile, overlap):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=LEARNED_RTOL,
                                atol=LEARNED_ATOL)
+
+
+def test_init_net_scheme():
+    """init_net keeps JAX init_params' scheme (its draws come from a
+    torch.Generator, not threefry): the layers' HWIO shapes, He-normal
+    weights of std sqrt(2 / (9 cin)), zero biases and a zero head; the same
+    seed gives the same net."""
+    import jax
+    want = [(tuple(w.shape), tuple(b.shape))
+            for w, b in jlearn.init_params(jax.random.PRNGKey(0))]
+    net = tlearn.init_net(torch.Generator().manual_seed(5))
+    got = [(tuple(c.weight.permute(2, 3, 1, 0).shape), tuple(c.bias.shape))
+           for c in net.layers]
+    assert got == want
+    cin = tlearn.IN_CHANNELS
+    for conv, (cout, _) in zip(net.layers[:-1], tlearn.ARCH):
+        std = float(conv.weight.detach().std())
+        assert abs(std / np.sqrt(2.0 / (9 * cin)) - 1.0) < 0.1, std
+        assert not bool(conv.bias.any())
+        cin = cout
+    assert not bool(net.layers[-1].weight.any())
+    assert not bool(net.layers[-1].bias.any())
+    again = tlearn.init_net(torch.Generator().manual_seed(5))
+    other = tlearn.init_net(torch.Generator().manual_seed(6))
+    for a, b, c in zip(net.parameters(), again.parameters(),
+                       other.parameters()):
+        assert torch.equal(a, b)
+    assert not torch.equal(net.layers[0].weight, other.layers[0].weight)
+    # the zero head makes the net the identity on the guided output
+    img, albedo, nrm, valid = _t(*_lightmap(7, 24, 20))
+    feat, log_g = tlearn.make_features(img, albedo, nrm, valid)
+    with torch.no_grad():
+        res = net(feat.permute(2, 0, 1)[None])
+    assert not bool(res.any())
+
+
+def test_save_net_round_trips(tmp_path):
+    """save_net writes the layout JAX load_params reads: its apply_net on
+    the saved weights equals the port's forward within the learned
+    tolerance, and the port's load_net reads the file back exactly."""
+    gen = torch.Generator().manual_seed(9)
+    net = tlearn.init_net(gen)
+    with torch.no_grad():  # a head that is not zero, so the output counts
+        net.layers[-1].weight.copy_(
+            0.05 * torch.randn(net.layers[-1].weight.shape, generator=gen))
+        net.layers[-1].bias.copy_(
+            0.01 * torch.randn(net.layers[-1].bias.shape, generator=gen))
+    path = tmp_path / "weights.npz"
+    tlearn.save_net(net, path)
+    params = jlearn.load_params(str(path))
+    assert len(params) == len(tlearn.ARCH) + 1
+    img, albedo, nrm, valid = _lightmap(8, 24, 20)
+    feat, _ = tlearn.make_features(*_t(img, albedo, nrm, valid))
+    want = np.asarray(jlearn.apply_net(params, jnp.asarray(feat.numpy())[None]))
+    with torch.no_grad():
+        got = net(feat.permute(2, 0, 1)[None]).permute(0, 2, 3, 1).numpy()
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=LEARNED_RTOL,
+                               atol=LEARNED_ATOL)
+    back = tlearn.load_net("cpu", path)
+    for (k, a), (k2, b) in zip(net.state_dict().items(),
+                               back.state_dict().items()):
+        assert k == k2 and torch.equal(a, b), k

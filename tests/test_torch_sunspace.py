@@ -14,6 +14,14 @@ grid, csrc/sungrid.cu's module) against dxrpathtracer_tpu.
     own-zmax, the longest chain, t_max <= t_min, inactive lanes, ragged n)
     equal to the JAX package's and never less occluded than the per-ray
     walk, each case reaching what it is for.
+  - The grid walk with an alpha test (the JAX package's
+    sun_any_hit(accept_fn=...)): the plain walk with tests/test_sunspace.py's
+    hash accept (written in torch) on the soup, and with the alpha test of
+    tiny_alpha_scene (JAX `_make_alpha_test`, the port's AlphaTest), equal
+    to JAX's on every lane; with the AlphaTest, equal to the port's per-ray
+    alpha any_hit on every lane.
+  - csrc/sungrid.cu includes csrc/alpha.cuh: a build is keyed on the
+    header's bytes too (buildlib.source_key), with no nvcc.
   - The session builds its grid when the first path-traced sample needs it
     (not at init, not for a raster frame), again when the sun moves, and
     drops it when enable_sunspace_shadows is off; the bake routes its sun
@@ -26,6 +34,7 @@ chip_smoke.py.
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,12 +44,16 @@ torch = pytest.importorskip("torch")
 
 from dxrpathtracer_tpu_torch.accel import (packet, proxy, sunspace,  # noqa: E402
                                            traverse)
+from dxrpathtracer_tpu_torch import buildlib  # noqa: E402
 from dxrpathtracer_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from dxrpathtracer_tpu_torch.app.session import RenderSession  # noqa: E402
 from dxrpathtracer_tpu_torch.app.settings import AppSettings, Scenes  # noqa: E402
 from dxrpathtracer_tpu_torch.bake.baker import Baker  # noqa: E402
-from dxrpathtracer_tpu_torch.convert import sun_grid_from_reference  # noqa: E402
-from dxrpathtracer_tpu_torch.scene.registry import load_scene  # noqa: E402
+from dxrpathtracer_tpu_torch.convert import (  # noqa: E402
+    scene_from_reference_arrays, sun_grid_from_reference)
+from dxrpathtracer_tpu_torch.render.integrator import _make_alpha_test  # noqa: E402
+from dxrpathtracer_tpu_torch.scene.registry import (load_scene,  # noqa: E402
+                                                    tiny_alpha_scene)
 from dxrpathtracer_tpu_torch.tools import traverse_cases as tc  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,6 +105,35 @@ def _edge_case(name):
         grid.basis.numpy(), grid.grid_size, sun=scene[3]))
     return scene, grid, rays, slices
 
+# the alpha cases: (triangles, accept) of the soup with the hash accept and
+# of tiny_alpha_scene with its alpha test
+ALPHA_CASES = ("hash", "tiny")
+TINY_SUN = (0.35, 0.8, -0.45)
+
+
+def _hash_accept(tid, u, v):
+    """tests/test_sunspace.py's pseudo-opacity (accepts ~60 % of (tri, uv)
+    lookups) in torch: uint32 arithmetic as int64 masked to 32 bits."""
+    m = 0xFFFFFFFF
+    h = ((tid.long() & m) * 2654435761 & m) + (
+        (u * 255).long() & m) * 40503 + ((v * 255).long() & m)
+    return (h & m) % 5 < 3
+
+
+def _tiny_rays():
+    """Sun rays of tiny_alpha_scene: origins on the ground plane under the
+    cards and above it, numpy from a seed."""
+    rng = np.random.default_rng(21)
+    o = np.stack([rng.uniform(-4, 4, N_RAYS), rng.uniform(0, 1.5, N_RAYS),
+                  rng.uniform(-4, 4, N_RAYS)], 1).astype(np.float32)
+    o[: N_RAYS // 2, 1] = 1e-3
+    tmin = np.full(N_RAYS, 1e-4, np.float32)
+    tmax = np.full(N_RAYS, 3e37, np.float32)
+    active = rng.random(N_RAYS) < 0.95
+    sun = np.asarray(TINY_SUN, np.float32)
+    return sun / np.linalg.norm(sun), o, tmin, tmax, active
+
+
 _SCRIPT = r"""
 import sys
 import numpy as np
@@ -99,10 +141,53 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 from dxrpathtracer_tpu.accel.sunspace import build_sun_grid, sun_any_hit
+from dxrpathtracer_tpu.app.settings import AppSettings
+from dxrpathtracer_tpu.render.integrator import _make_alpha_test
+from dxrpathtracer_tpu.scene import dds as jdds
+from dxrpathtracer_tpu.scene import registry as jreg
+from dxrpathtracer_tpu_torch.convert import reference_scene_arrays
+
+
+def hash_accept(tri_id, u, v):
+    h = (tri_id.astype(jnp.uint32) * jnp.uint32(2654435761)
+         + (u * 255).astype(jnp.uint32) * jnp.uint32(40503)
+         + (v * 255).astype(jnp.uint32))
+    return (h % jnp.uint32(5)) < jnp.uint32(3)
+
 
 inp = dict(np.load(sys.argv[1]))
 out = {}
-for case in sorted({k.split("__")[0] for k in inp}):
+# tiny_alpha_scene as the JAX package loads it (the mask its DDS loader
+# decoded, if it ran, goes out for the port's scene)
+load, seen = jdds.load_dds, []
+jdds.load_dds = lambda path: seen.append(load(path)) or seen[-1]
+try:
+    tiny = jreg.tiny_alpha_scene()[0]
+finally:
+    jdds.load_dds = load
+if seen:
+    out["tiny__mask"] = seen[0].data
+for k, v in reference_scene_arrays(tiny).items():
+    out["tiny__scene__" + k] = v
+pos, tri = np.asarray(tiny.positions), np.asarray(tiny.tri_idx)
+accepts = {"hash": hash_accept,
+           "tiny": _make_alpha_test(jax.device_put(tiny), AppSettings())}
+for case in ("hash", "tiny"):
+    g = lambda f: inp["alpha_" + case + "__" + f]
+    if case == "hash":
+        v0, v1, v2 = g("v0"), g("v1"), g("v2")
+    else:
+        v0, v1, v2 = pos[tri[:, 0]], pos[tri[:, 1]], pos[tri[:, 2]]
+    grid = build_sun_grid(v0, v1, v2, g("sun"), grid_size=int(g("size")))
+    n = g("o").shape[0]
+    d = jnp.broadcast_to(jnp.asarray(g("sun")), (n, 3))
+    args = (grid, jnp.asarray(g("o")), d, jnp.asarray(g("tmin")),
+            jnp.asarray(g("tmax")), jnp.asarray(g("active")))
+    out["alpha_" + case + "__vis"] = np.asarray(sun_any_hit(
+        *args, accept_fn=accepts[case]))
+    out["alpha_" + case + "__opaque"] = np.asarray(sun_any_hit(*args))
+for case in sorted({k.split("__")[0] for k in inp
+                    if not k.startswith("alpha_")}):
     g = lambda f: inp[case + "__" + f]
     grid = build_sun_grid(g("v0"), g("v1"), g("v2"), g("sun"),
                           grid_size=int(g("size")))
@@ -131,6 +216,11 @@ def reference(tmp_path_factory):
         for f, a in zip(_FIELDS, (*scene, rays["o"], rays["tmin"],
                                   rays["tmax"], rays["active"])):
             inputs["edge_" + name + "__" + f] = np.asarray(a)
+    for f, a in zip(_FIELDS, _case("soup512")):
+        inputs["alpha_hash__" + f] = np.asarray(a)
+    sun, *rays = _tiny_rays()
+    for f, a in zip(_FIELDS[3:], (sun, 512, *rays)):
+        inputs["alpha_tiny__" + f] = np.asarray(a)
     src, dst = tmp / "in.npz", tmp / "out.npz"
     np.savez(src, **inputs)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
@@ -310,3 +400,83 @@ def test_bake_routes_the_grid_and_the_proxy(monkeypatch):
         lightmaps.append(baker.accum)
     assert torch.equal(lightmaps[0], lightmaps[1])
     assert float(lightmaps[0][..., 3].sum()) > 0
+
+
+def _alpha_case(reference, case):
+    """(the port's grid, its BVH, the rays as tensors, the accept) of an
+    alpha case: the soup with the hash accept, or tiny_alpha_scene (bound to
+    the mask JAX decoded, if any) with its AlphaTest."""
+    if case == "hash":
+        v0, v1, v2, sun, size, o, tmin, tmax, active = _case("soup512")
+        accept = _hash_accept
+    else:
+        arrays = {k.split("__", 2)[2]: v for k, v in reference.items()
+                  if k.startswith("tiny__scene__")}
+        scene = scene_from_reference_arrays(arrays)
+        port = tiny_alpha_scene(reference.get("tiny__mask"))[0]
+        for k in ("positions", "tri_idx", "tri_shade", "texels"):
+            assert torch.equal(getattr(port, k), getattr(scene, k)), k
+        pos, tri = scene.positions.numpy(), scene.tri_idx.numpy()
+        v0, v1, v2 = pos[tri[:, 0]], pos[tri[:, 1]], pos[tri[:, 2]]
+        sun, o, tmin, tmax, active = _tiny_rays()
+        size = 512
+        accept = _make_alpha_test(scene, AppSettings())
+    grid = sunspace.build_sun_grid(v0, v1, v2, sun, grid_size=size)
+    rays = (torch.from_numpy(o),
+            torch.from_numpy(np.broadcast_to(sun, o.shape).copy()),
+            torch.from_numpy(tmin), torch.from_numpy(tmax),
+            torch.from_numpy(active))
+    return grid, build_bvh(v0, v1, v2, width=8), rays, accept
+
+
+@pytest.mark.parametrize("case", ALPHA_CASES)
+def test_plain_alpha_walk_matches_jax_and_the_alpha_walk(reference, case):
+    grid, bvh, rays, accept = _alpha_case(reference, case)
+    if case == "tiny":
+        assert isinstance(accept, traverse.AlphaTest)
+    vis = sunspace.sun_any_hit_plain(grid, *rays, accept_fn=accept)
+    np.testing.assert_array_equal(vis.numpy(),
+                                  reference[f"alpha_{case}__vis"])
+    assert torch.equal(sunspace.sun_any_hit(grid, *rays, alpha=accept), vis)
+    opaque = sunspace.sun_any_hit(grid, *rays)
+    np.testing.assert_array_equal(opaque.numpy(),
+                                  reference[f"alpha_{case}__opaque"])
+    # the per-ray walk with the same test, on every lane
+    walk = traverse.any_hit(bvh, *rays, alpha=accept)
+    assert torch.equal(vis, walk)
+    rejected = int(((opaque == 0) & (vis == 1)).sum())
+    print(f"alpha {case}: {int((vis == 0).sum())} blocked, {rejected} "
+          f"blocked only by rejected triangles, of {int(rays[4].sum())} "
+          f"active")
+    assert rejected > 0 and int((vis == 0).sum()) > 0
+    assert not bool((vis < opaque).any())  # a test only takes blockers away
+
+
+def test_kernel_build_is_keyed_on_its_headers(tmp_path):
+    src = tmp_path / "k.cu"
+    hdr = tmp_path / "inc" / "h.cuh"
+    hdr.parent.mkdir()
+    hdr.write_text("// v1\n")
+    src.write_text('#include <cstdint>\n#include "h.cuh"\n')
+    cmd = ["nvcc", "-O3", "-I", str(hdr.parent)]
+    key = buildlib.source_key(src, cmd)
+    assert buildlib.source_key(src, cmd) == key
+    assert buildlib.source_key(src, [*cmd, "-g"]) != key
+    hdr.write_text("// v2\n")
+    assert buildlib.source_key(src, cmd) != key
+    with pytest.raises(FileNotFoundError):
+        buildlib.source_key(src, cmd[:2])  # the header is nowhere
+    # the port's own: sungrid.cu and traverse.cu include alpha.cuh
+    csrc = Path(sunspace.KERNEL_SOURCE).parent
+    for name in ("sungrid.cu", "traverse.cu"):
+        assert '#include "alpha.cuh"' in (csrc / name).read_text()
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for name in ("sungrid.cu", "alpha.cuh"):
+        (copy / name).write_bytes((csrc / name).read_bytes())
+    flags = ["nvcc", *traverse.NVCC_FLAGS]
+    assert buildlib.source_key(copy / "sungrid.cu", flags) == \
+        buildlib.source_key(csrc / "sungrid.cu", flags)
+    (copy / "alpha.cuh").write_text((csrc / "alpha.cuh").read_text() + "\n")
+    assert buildlib.source_key(copy / "sungrid.cu", flags) != \
+        buildlib.source_key(csrc / "sungrid.cu", flags)
