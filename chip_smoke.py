@@ -25,7 +25,9 @@ reuse, proxy seeding, the software raster of camera rays), its split
 alpha route and load-time alpha subdivision, off by default too, and
 multi-device rendering (parallel/mesh.py: rows, samples and both over a
 list of devices, and the texel-row-sharded bake), here with every shard on
-the one card. Phases, each fatal on failure:
+the one card, and the learned denoiser's trainer (tools/train_denoiser.py:
+dataset bakes, patches, 3000 Adam steps, the held-in eval). Phases, each
+fatal on failure:
 
   1. device: a CUDA device must be present; prints the card's name and power
      limit as nvidia-smi reports them;
@@ -346,6 +348,25 @@ the one card. Phases, each fatal on failure:
        --max-frames 8`: exit 0, and its stderr reports the script's 7
        frames and a mean ms/frame.
 
+  T. training the learned denoiser: the functions of
+     dxrpathtracer_tpu_torch/tools/train_denoiser.py at the width of the JAX
+     repository's recipe (the net's ARCH, 2048 patches of 64^2, batch 16,
+     3000 Adam steps at lr 1e-3 under the cosine decay, 1, 2 and 4 spp
+     bakes against 96 spp at 192^2), cut to BoxTest alone (the default
+     scenes add Stronghold, whose charted atlas takes ~15 minutes on the
+     host): bake_dataset (the atlas and bake seconds), make_patches (its
+     seconds), train (its seconds, of which train's set-up and first
+     step, ms per step as the mean, after the first and as the median of
+     the intervals between CUDA events recorded after each step, the peak
+     device memory; the first step's loss and the mean of the
+     last 200, which must be below it; the bakes' kernel launches; TF32
+     must stay off); one step's loss and gradients from the trained
+     weights on the card and on the CPU (loss within 1e-5, gradients
+     within 1e-3 of their layer's largest); save_net, load_net bit for
+     bit; evaluate with learned_denoise(net=) (noisy / guided / learned
+     log-RMSE, learned below guided at 1 spp); make_denoise_eval on
+     BoxTest at 64^2 into a temporary directory, read back.
+
 BOUND: the least time the card could take, the larger of the bytes moved
 (each input read once, each output written once) over 3.35 TB/s (NVIDIA H100
 SXM data sheet) and the f32 operations over 33.5 T operations/s. The data
@@ -394,8 +415,8 @@ alpha route's packet_closest_opaque, packet_any_opaque and
 packet_candidates), whose `launches` count the main paths' runs (the
 opaque frame, the alpha frames, the bake, the raster frames of R1 and R2,
 the imported frames of F, the animation of AN, the viewer of I1-I3, E2's
-frames and bake steps, S's routes, K's split routes and M's sharded steps)
-and every one of which must be > 0, and one for the grid's alpha
+frames and bake steps, S's routes, K's split routes, M's sharded steps and
+T's bakes) and every one of which must be > 0, and one for the grid's alpha
 instantiation (sun_any_hit_alpha), whose `launches` are phase A's check's:
 no route sends sun rays to it, as no JAX caller passes the grid an
 accept_fn (its ms, plain ms and bound are the two classes' sums); the last
@@ -414,6 +435,7 @@ import contextlib
 import json
 import os
 import pickle
+import re
 import shutil
 import statistics
 import subprocess
@@ -4991,6 +5013,233 @@ def phase_split_alpha(sess, smi):
     return out, launches, (scene, preset)
 
 
+# ---------------------------------------------------------------------------
+# T: training the learned denoiser (tools/train_denoiser.py)
+# ---------------------------------------------------------------------------
+
+# The JAX repository's recipe for the shipped weights (its trainer's
+# defaults): the net's ARCH, 1, 2 and 4 spp bakes against a 96-spp reference
+# at 192^2, 2048 patches of 64^2, batch 16, 3000 Adam steps at lr 1e-3. The
+# one cut: BoxTest alone, not BoxTest and Stronghold, whose stand-in's
+# charted atlas takes ~15 minutes on the host.
+T_SCENE, T_RES, T_NOISY, T_REF = "BoxTest", 192, (1, 2, 4), 96
+T_PATCH, T_PATCHES, T_BATCH, T_STEPS, T_LR, T_SEED = 64, 2048, 16, 3000, \
+    1e-3, 0
+T_LAST = 200   # the steps whose mean loss must be below the first step's
+# One step on the card against the CPU, from the same weights and batch:
+# loss within T_LOSS_RTOL, every gradient within T_GRAD_TOL of its layer's
+# largest. A weight's gradient sums 65,536 texels' products, which cancel:
+# it is small against its terms, so the float32 rounding of the sum is
+# large against it; cuDNN picks the order per run (implicit GEMM, FFT, and
+# a nondeterministic backward). Read on an H100: 8.4e-6 to 9.2e-5 in three
+# runs (the CPU tests read ~1e-6 between XLA's and torch's CPU
+# convolutions on 4 patches of 16^2). A wrong gradient (the tie rules of
+# max or abs, a missing factor) differs by 1e-2 or more.
+T_LOSS_RTOL, T_GRAD_TOL = 1e-5, 1e-3
+T_EVAL_RES = 64  # make_denoise_eval: BoxTest, 1 and 2 spp against 8
+
+
+@contextlib.contextmanager
+def tee_stderr():
+    """What the block writes to sys.stderr, still written there, also in
+    the yielded StringIO."""
+    import io
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            real.write(text)
+            return super().write(text)
+
+    real, buf = sys.stderr, Tee()
+    sys.stderr = buf
+    try:
+        yield buf
+    finally:
+        sys.stderr = real
+
+
+@contextlib.contextmanager
+def step_events(td, events, first_done):
+    """train_step wrapped to record a CUDA event after each step (no
+    synchronise): the intervals between them are the loop's steps on the
+    card's timeline. After the first step alone it synchronises and
+    appends the host clock to `first_done`: train's set-up (the patches'
+    upload, the optimizer) and the first step (cuDNN's and the
+    optimizer's first calls) end there."""
+    step = td.train_step
+
+    def timed(*args):
+        loss = step(*args)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if not first_done:
+            sync()
+            first_done.append(time.time())
+        return loss
+
+    td.train_step = timed
+    try:
+        yield
+    finally:
+        td.train_step = step
+
+
+def t_step_card_vs_cpu(td, net, feats, refs, masks):
+    """One batch's loss and gradients from the trained weights, on the card
+    and on the CPU: (loss relative difference, per parameter the largest
+    gradient difference over its largest gradient, the card's loss)."""
+    import copy
+    import numpy as np
+    idx = np.random.default_rng(T_SEED + 1).integers(0, feats.shape[0],
+                                                     T_BATCH)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        m = copy.deepcopy(net).to(dev)
+        m.zero_grad(set_to_none=True)
+        batch = [torch.as_tensor(np.ascontiguousarray(a[idx]), device=dev)
+                 .permute(0, 3, 1, 2) for a in (feats, refs, masks)]
+        loss = td.denoise_loss(m, *batch)
+        loss.backward()
+        out[dev] = (float(loss.detach()),
+                    [p.grad.cpu() for p in m.parameters()])
+    (lc, gc), (lh, gh) = out[DEVICE], out["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    grad_rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(gc, gh)]
+    return loss_rel, grad_rel, lc
+
+
+def phase_train(smi):
+    """The trainer's functions on the card (dxrpathtracer_tpu_torch/tools/
+    train_denoiser.py), as its main runs them: bake_dataset, make_patches,
+    train; then one step against the CPU, save_net / load_net, evaluate
+    with learned_denoise(net=), and the eval-set tool."""
+    import numpy as np
+    from dxrpathtracer_tpu_torch.render.learned_denoise import (load_net,
+                                                                save_net)
+    from dxrpathtracer_tpu_torch.tools import make_denoise_eval
+    from dxrpathtracer_tpu_torch.tools import train_denoiser as td
+    t_phase = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    with tee_stderr() as err:
+        pairs = td.bake_dataset(T_SCENE, T_RES, T_NOISY, T_REF, DEVICE)
+    bake_s = time.time() - t0
+    atlas_s = float(re.search(r"charted atlas ([0-9.]+)s",
+                              err.getvalue()).group(1))
+    t0 = time.time()
+    feats, refs, masks = td.make_patches(pairs, T_PATCH, T_PATCHES,
+                                         np.random.default_rng(T_SEED),
+                                         DEVICE)
+    patch_s = time.time() - t0
+    if feats.shape != (T_PATCHES, T_PATCH, T_PATCH, 13):
+        raise SystemExit(f"chip_smoke: T patches {feats.shape}")
+    events, first_done = [], []
+    sync()
+    t0 = time.time()
+    with step_events(td, events, first_done):
+        net, losses = td.train(feats, refs, masks, T_STEPS, T_BATCH, T_LR,
+                               T_SEED, device=DEVICE)
+    sync()
+    train_s = time.time() - t0
+    first_s = first_done[0] - t0
+    rest_ms = (train_s - first_s) / (T_STEPS - 1) * 1e3
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    med_ms = statistics.median(step_ms)
+    first, last = float(losses[0]), float(losses[-T_LAST:].mean())
+    log(f"T: {T_SCENE} {T_RES}^2, spp {T_NOISY} vs {T_REF}: charted atlas "
+        f"{atlas_s:.2f} s, bakes {bake_s:.2f} s (atlas included); "
+        f"{T_PATCHES} patches of {T_PATCH}^2 in {patch_s:.2f} s; {T_STEPS} "
+        f"steps of batch {T_BATCH} in {train_s:.2f} s "
+        f"({train_s / T_STEPS * 1e3:.3f} ms/step): set-up and first step {first_s:.2f} s, then "
+        f"{rest_ms:.3f} ms/step; median step {med_ms:.3f} ms (CUDA events, "
+        f"{len(step_ms)} intervals); peak device memory {peak_gib:.2f} GiB "
+        f"[{smi}]")
+    counts = {k: v for k, v in launches.items()
+              if k != "traverse_by_instance"}
+    log(f"T: loss first step {first:.5f}, mean of the last {T_LAST} "
+        f"{last:.5f}; launches of the bakes and the training {counts}")
+    if not (np.isfinite(losses).all() and np.isfinite(feats).all()
+            and all(np.isfinite(a).all() for p in pairs for a in p[:4])):
+        raise SystemExit("chip_smoke: T losses, patches or bakes not finite")
+    if not last < first:
+        raise SystemExit(f"chip_smoke: T mean loss of the last {T_LAST} "
+                         f"steps {last} not below the first step's {first}")
+    if launches["traverse"] == 0 or launches["row_gather"] == 0:
+        raise SystemExit(f"chip_smoke: T bakes launched {launches}")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise SystemExit("chip_smoke: T turned TF32 on")
+
+    loss_rel, grad_rel, step_loss = t_step_card_vs_cpu(td, net, feats, refs,
+                                                       masks)
+    log(f"T: one step card vs CPU from the trained weights: loss "
+        f"{step_loss:.6f}, rel diff {loss_rel:.3e} (<= {T_LOSS_RTOL}); "
+        f"gradients max diff / max, weight and bias of each layer "
+        + ", ".join(f"{x:.1e}" for x in grad_rel) + f" (<= {T_GRAD_TOL})")
+    if not (loss_rel <= T_LOSS_RTOL and max(grad_rel) <= T_GRAD_TOL):
+        raise SystemExit("chip_smoke: T step differs between card and CPU")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        path = os.path.join(tmp, "weights.npz")
+        save_net(net, path)
+        back = load_net(DEVICE, path)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(net.state_dict().values(), back.state_dict().values()))
+        if not same:
+            raise SystemExit("chip_smoke: T reloaded weights differ")
+        rows = td.evaluate(back, pairs)
+        for spp, row in zip(T_NOISY, rows):
+            log(f"T: eval {spp} spp log-RMSE noisy / guided / learned "
+                + " / ".join(f"{x:.4f}" for x in row))
+        if not (all(r is not None and np.isfinite(r).all() for r in rows)
+                and rows[0][2] < rows[0][1]):
+            raise SystemExit(f"chip_smoke: T learned not below guided at "
+                             f"1 spp: {rows}")
+        t0 = time.time()
+        eval_path = os.path.join(tmp, "eval.npz")
+        make_denoise_eval.main(["--scene", "BoxTest", "--resolution",
+                                str(T_EVAL_RES), "--noisy-spp", "1,2",
+                                "--ref-spp", "8", "--out", eval_path,
+                                "--device", DEVICE])
+        eval_s = time.time() - t0
+        with np.load(eval_path) as z:
+            maps = [z[f"{k}{i}"] for i in range(int(z["count"]))
+                    for k in ("noisy", "ref", "albedo", "normal")]
+            ok = (int(z["count"]) == 2 and list(z["spps"]) == [1, 2]
+                  and bytes(z["scene"]) == b"BoxTest"
+                  and all(a.dtype == np.float16
+                          and a.shape == (T_EVAL_RES, T_EVAL_RES, 3)
+                          and np.isfinite(a).all() for a in maps)
+                  and z["valid0"].dtype == bool and z["valid0"].any())
+        if not ok:
+            raise SystemExit("chip_smoke: T make_denoise_eval's file is not "
+                             f"2 finite BoxTest pairs at {T_EVAL_RES}^2")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.time() - t_phase
+    log(f"T: make_denoise_eval BoxTest {T_EVAL_RES}^2 (1, 2 vs 8 spp) "
+        f"{eval_s:.2f} s; "
+        f"weights read back bit for bit; phase T {phase_s:.1f} s")
+    return {"scene": T_SCENE, "resolution": T_RES, "noisy_spp": T_NOISY,
+            "ref_spp": T_REF, "patch": T_PATCH, "patches": T_PATCHES,
+            "batch": T_BATCH, "steps": T_STEPS, "lr": T_LR,
+            "atlas_s": atlas_s, "bake_s": bake_s, "patch_s": patch_s,
+            "train_s": train_s, "step_ms_mean": train_s / T_STEPS * 1e3,
+            "setup_first_step_s": first_s, "step_ms_after_first": rest_ms,
+            "step_ms_median": med_ms, "peak_memory_gib": peak_gib,
+            "loss_first": first, "loss_last_mean": last,
+            "losses_every_100": [float(x) for x in losses[::100]],
+            "step_card_vs_cpu": {"loss_rel": loss_rel, "grad_rel": grad_rel},
+            "eval": rows, "eval_tool_s": eval_s, "phase_s": phase_s,
+            "kernel_launches": launches, "card": smi}, launches
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, ROOT)
@@ -5057,6 +5306,8 @@ def main():
     stop_cpu_workers()
     log(f"card-vs-CPU checks of C, R4 and K: waited {time.time() - t0:.1f} s "
         f"for the workers' CPU frames")
+    torch.cuda.empty_cache()
+    training, t_launches = phase_train(smi)
 
     # each traversal instantiation: its launches on the main paths (the
     # opaque frame, the alpha frames, the bake, the raster frames, the
@@ -5064,7 +5315,7 @@ def main():
     runs = [frame_launches, *alpha_launches, bake_launches, r1_launches,
             *r2_launches, fbx_launches, anim_launches, viewer_launches,
             *engine_launches, *bake_ab_launches, *seeded_launches,
-            *split_launches, *multi_launches, m4_launches]
+            *split_launches, *multi_launches, m4_launches, t_launches]
     entries = []
     for key in INSTANCES:
         name = instance_name(key)
@@ -5164,7 +5415,7 @@ def main():
                    "engine_bake_ab": bake_ab,
                    "engine_same_frame": engine_same,
                    "seeded_routes": seeded, "split_alpha": split_alpha,
-                   "multi_device": multi,
+                   "multi_device": multi, "training": training,
                    **kernels}, f,
                   indent=1)
     print(json.dumps(kernels))

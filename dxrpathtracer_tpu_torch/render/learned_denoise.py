@@ -2,7 +2,9 @@
 
 The port of dxrpathtracer_tpu/render/learned_denoise.py. A compact residual
 CNN over the inputs OIDN's RTLightmap consumes (HDR irradiance + albedo +
-normal), trained by the JAX package (tools/train_denoiser.py):
+normal); the shipped weights were trained by the JAX package's trainer, and
+the port's own (dxrpathtracer_tpu_torch/tools/train_denoiser.py) trains
+new ones on the card:
   - five dilated 3x3 convolutions (dilations 1,2,4,2,1) with ReLU, then a
     3x3 head that predicts a residual in log1p space on top of the guided
     joint-bilateral output (render/denoise.py);
@@ -125,16 +127,19 @@ def denoise_with_net(net, img, albedo, normal, valid=None):
 
 
 @torch.no_grad()
-def learned_denoise(img, albedo, normal, valid=None, tile=TILE,
+def learned_denoise(img, albedo, normal, valid=None, net=None, tile=TILE,
                     overlap=OVERLAP):
     """Denoise an HDR lightmap with the trained CNN.
 
     img: (H, W, 3) noisy irradiance; albedo/normal: (H, W, 3) surface maps
-    (bake/surface_map.py); valid: (H, W) coverage mask. Maps larger than
-    `tile` are processed in overlapping tiles (interior crops stitched
-    back) so peak activation memory stays bounded.
+    (bake/surface_map.py); valid: (H, W) coverage mask; net: a DenoiserNet
+    on the image's device (freshly trained weights, the JAX package's
+    `params`), by default the shipped weights. Maps larger than `tile` are
+    processed in overlapping tiles (interior crops stitched back) so peak
+    activation memory stays bounded.
     """
-    net = load_net(img.device)
+    if net is None:
+        net = load_net(img.device)
     img = despike(img)
     h, w = img.shape[:2]
     if max(h, w) <= tile:

@@ -16,6 +16,12 @@ underscore) of every module of dxrpathtracer_tpu/ must have one of:
 
 An entry for a name the port now has under its own name, or for a name the
 JAX package no longer has, fails too, so the map stays true.
+
+The repository's tools that the port carries (TOOLS: the denoiser's trainer
+and its eval-set tool) have a module of the same name in
+dxrpathtracer_tpu_torch/tools/ with every public function of theirs, and
+the same command-line flags, types and defaults, plus --device (default
+cuda); the trainer's --out defaults to the port's own weight file.
 """
 
 import ast
@@ -159,6 +165,40 @@ def test_exceptions_name_what_exists():
         if method:
             assert method in names[cls], (
                 f"{module}::{name} -> {entry}: no such method")
+
+
+TOOLS = ("train_denoiser.py", "make_denoise_eval.py")
+# (tool, flag): the port's default, as source text, where it is not JAX's
+OWN_DEFAULTS = {("train_denoiser.py", "--out"): "str(DENOISER_WEIGHTS)"}
+
+
+def _flags(path: Path) -> dict:
+    """{flag: (type, default)} of a module's add_argument calls, each as
+    its source text."""
+    out = {}
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            kw = {k.arg: ast.unparse(k.value) for k in node.keywords}
+            out[node.args[0].value] = (kw.get("type"), kw.get("default"))
+    return out
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_repository_tools_have_counterparts(tool):
+    want = _public(REPO / "tools" / tool)
+    have = _public(PORT / "tools" / tool)
+    missing = [n for n in want if n not in have]
+    assert want and not missing, f"tools/{tool}: no counterpart for {missing}"
+    jflags = _flags(REPO / "tools" / tool)
+    tflags = _flags(PORT / "tools" / tool)
+    assert tflags.pop("--device") == (None, "'cuda'")
+    for (where, flag), default in OWN_DEFAULTS.items():
+        if where == tool:
+            assert tflags.pop(flag)[1] == default
+            jflags.pop(flag)
+    assert tflags == jflags
 
 
 def test_the_port_imports_no_jax():

@@ -90,6 +90,10 @@ def _paths_named(path):
 def test_port_names_no_path_inside_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 50
+    # the repository tools the port carries, whose JAX originals write into
+    # the JAX package's tree
+    for tool in ("train_denoiser.py", "make_denoise_eval.py"):
+        assert PORT / "tools" / tool in sources
     found = [f for p in sources for f in _paths_named(p)]
     assert not found, "\n".join(found)
     # the CUDA and C++ sources name none either, outside comments

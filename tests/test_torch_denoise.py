@@ -9,11 +9,20 @@ numpy seed.
   - learned_denoise with the repository's weights, on one tile and on a
     multi-tile case (small tile and overlap), within rtol 1e-4, atol 1e-5:
     convolutions sum in another order than XLA's;
+  - learned_denoise(net=) with a save_net file equals JAX
+    learned_denoise(params=load_params(file)), on one tile and on several,
+    within the learned tolerance;
+  - the port's shipped net on the committed held-out SunTemple pairs
+    (tests/data/denoise_eval_suntemple_192.npz): at every spp the guided
+    filter beats the noisy bake and the learned net beats the guided
+    filter in log-RMSE, the bar tests/test_denoise_eval.py holds JAX to;
   - the training API: init_net keeps JAX init_params' scheme (shapes,
     He-normal std, zero biases and head, deterministic per seed); save_net
     -> JAX load_params -> apply_net equals the port's forward within the
     learned tolerance, and load_net reads it back exactly.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -122,6 +131,76 @@ def test_learned_matches_jax(shape, tile, overlap):
                                atol=LEARNED_ATOL)
 
 
+def _trained_like(seed):
+    """init_net's net with a head that is not zero, so that the output
+    differs from the guided filter's and from the shipped net's."""
+    gen = torch.Generator().manual_seed(seed)
+    net = tlearn.init_net(gen)
+    with torch.no_grad():
+        net.layers[-1].weight.copy_(
+            0.05 * torch.randn(net.layers[-1].weight.shape, generator=gen))
+        net.layers[-1].bias.copy_(
+            0.01 * torch.randn(net.layers[-1].bias.shape, generator=gen))
+    return net
+
+
+@pytest.mark.parametrize("shape,tile,overlap", [
+    ((40, 36), 512, 64),   # one tile
+    ((70, 52), 32, 6),     # several overlapping tiles
+])
+def test_learned_with_net_matches_jax_params(tmp_path, shape, tile, overlap):
+    path = tmp_path / "weights.npz"
+    tlearn.save_net(_trained_like(11), path)
+    img, albedo, nrm, valid = _lightmap(12, *shape)
+    want = np.asarray(jlearn.learned_denoise(
+        jnp.asarray(img), jnp.asarray(albedo), jnp.asarray(nrm),
+        valid=jnp.asarray(valid), params=jlearn.load_params(str(path)),
+        tile=tile, overlap=overlap))
+    args = _t(img, albedo, nrm)
+    got = tlearn.learned_denoise(*args, valid=_t(valid)[0],
+                                 net=tlearn.load_net("cpu", path), tile=tile,
+                                 overlap=overlap).numpy()
+    shipped = tlearn.learned_denoise(*args, valid=_t(valid)[0], tile=tile,
+                                     overlap=overlap).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - shipped).max() > 1e-2  # the net= weights were used
+    np.testing.assert_allclose(got, want, rtol=LEARNED_RTOL,
+                               atol=LEARNED_ATOL)
+
+
+def _log_rmse(a, b, mask):
+    d = (np.log1p(np.maximum(a, 0.0)) - np.log1p(np.maximum(b, 0.0)))[mask]
+    return float(np.sqrt(np.mean(d * d)))
+
+
+def test_shipped_net_passes_held_out_suntemple():
+    """The SunTemple family is held out of the shipped weights' training
+    (BoxTest and Stronghold): 1, 2 and 4 spp bakes at 192^2 against a
+    96-spp reference, baked by the JAX repository's eval tool."""
+    path = Path(__file__).parent / "data" / "denoise_eval_suntemple_192.npz"
+    net = tlearn.load_net("cpu")
+    rows = []
+    with np.load(path) as z:
+        spps = [int(s) for s in z["spps"]]
+        assert spps == [1, 2, 4] and int(z["count"]) == 3
+        for i, spp in enumerate(spps):
+            noisy, ref, albedo, nrm = (z[f"{k}{i}"].astype(np.float32) for k
+                                       in ("noisy", "ref", "albedo", "normal"))
+            valid = z[f"valid{i}"].astype(bool)
+            img, alb, nr, v = _t(noisy, albedo, nrm, valid)
+            gui = tden.guided_bilateral_denoise(img, alb, nr, valid=v).numpy()
+            lrn = tlearn.learned_denoise(img, alb, nr, valid=v,
+                                         net=net).numpy()
+            rows.append((spp, *(_log_rmse(a, ref, valid)
+                                for a in (noisy, gui, lrn))))
+    print("\nSunTemple held-out log-RMSE (spp / noisy / guided / learned):")
+    for row in rows:
+        print("  %d spp: %.4f / %.4f / %.4f" % row)
+    for spp, base, gui, lrn in rows:
+        assert gui < base, (spp, gui, base)
+        assert lrn < gui, (spp, lrn, gui)
+
+
 def test_init_net_scheme():
     """init_net keeps JAX init_params' scheme (its draws come from a
     torch.Generator, not threefry): the layers' HWIO shapes, He-normal
@@ -160,13 +239,7 @@ def test_save_net_round_trips(tmp_path):
     """save_net writes the layout JAX load_params reads: its apply_net on
     the saved weights equals the port's forward within the learned
     tolerance, and the port's load_net reads the file back exactly."""
-    gen = torch.Generator().manual_seed(9)
-    net = tlearn.init_net(gen)
-    with torch.no_grad():  # a head that is not zero, so the output counts
-        net.layers[-1].weight.copy_(
-            0.05 * torch.randn(net.layers[-1].weight.shape, generator=gen))
-        net.layers[-1].bias.copy_(
-            0.01 * torch.randn(net.layers[-1].bias.shape, generator=gen))
+    net = _trained_like(9)  # a head that is not zero, so the output counts
     path = tmp_path / "weights.npz"
     tlearn.save_net(net, path)
     params = jlearn.load_params(str(path))
