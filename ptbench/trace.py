@@ -1,0 +1,285 @@
+"""Spans, counters and the device trace of a `--trace 1` run.
+
+Spans are ptbench's own: `install_spans` wraps the calls into each layer of
+the port (the session's frame and update, the Baker's step, the
+integrator's raygen, trace, shade and vertex update, and each traversal
+entry the integrator calls) in `torch.profiler.record_function`, so the
+profiler records them as host intervals. A wrapper around the gather
+kernel's launch records each call's ids and table width, whose bytes are
+counted after the traced stretch. Counters are the port's own
+KERNEL_LAUNCHES dicts and ints, read before and after the window.
+
+`reduce` turns a profiler's events into what the per-layer readers read:
+every device operation with its interval, the union of those intervals
+(the device's busy time; the idle arithmetic of
+dxrpathtracer_tpu_torch/tools/profile_bake.py:44-71, with the busy time
+taken as the union of intervals rather than a sum, so overlapping streams
+are not counted twice), and the idle gaps, each named by the innermost
+ptbench span the host was in when the gap began.
+"""
+
+import bisect
+import re
+import contextlib
+import functools
+
+import torch
+
+# The port's hand kernels (dxrpathtracer_tpu_torch/csrc/*.cu) by the names
+# it gave their __global__ functions.
+TRAVERSAL_KERNELS = ("warp_kernel", "thread_kernel", "packet_kernel",
+                     "sungrid_kernel", "proxy_kernel", "proxy_closest_kernel",
+                     "cut_kernel")
+HAND_KERNELS = TRAVERSAL_KERNELS + ("gather_rows", "revalidate_kernel",
+                                    "raster_kernel")
+SPAN_PREFIX = "ptbench."
+
+
+def sync(device):
+    """Wait for the device's work (nothing to wait for on the CPU)."""
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize(device)
+
+
+def kernel_base_name(name: str) -> str:
+    """The function's name in a device event's name: `void (anonymous
+    namespace)::packet_kernel<false, true, 0>(float const*, ...)` ->
+    packet_kernel."""
+    s = name.replace("(anonymous namespace)::", "")
+    if s.startswith("void "):
+        s = s[5:]
+    m = re.match(r"\s*([\w:]+)", s)
+    return m.group(1).split("::")[-1] if m else name
+
+
+def is_kernel(name: str) -> bool:
+    return not (name.startswith("Memcpy") or name.startswith("Memset"))
+
+
+def device_s(ctx, pick) -> float:
+    """Seconds of the traced kernels whose base name `pick` accepts."""
+    return sum(e - s for n, s, e in ctx["profile"]["device_ops"]
+               if is_kernel(n) and pick(kernel_base_name(n)))
+
+
+# (module, attribute, span) of the wrapped calls. Traversal entries are
+# wrapped where the integrator and the bake look them up.
+SPANS = (
+    ("dxrpathtracer_tpu_torch.app.session", "RenderSession.render_frame",
+     "frame"),
+    ("dxrpathtracer_tpu_torch.app.session", "RenderSession.update",
+     "frame.update"),
+    ("dxrpathtracer_tpu_torch.app.session", "RenderSession.update_sun_grid",
+     "frame.sun_grid"),
+    ("dxrpathtracer_tpu_torch.bake.baker", "Baker.bake_step", "bake"),
+    ("dxrpathtracer_tpu_torch.bake.baker", "bake_sample", "bake.slab"),
+    ("dxrpathtracer_tpu_torch.bake.baker", "trace_paths", "paths"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "raygen", "raygen"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "trace_paths", "paths"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "_shade_vertex", "shade"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "_apply_vertex",
+     "vertex_update"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "closest_hit",
+     "traverse.closest"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "any_hit", "traverse.any"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "packet_closest_hit",
+     "traverse.packet_closest"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "packet_any_hit",
+     "traverse.packet_any"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "sun_any_hit",
+     "traverse.sun_grid"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "screened_any",
+     "traverse.screened"),
+    ("dxrpathtracer_tpu_torch.render.integrator", "cut_clear",
+     "traverse.cut"),
+)
+
+# (module, counter) of the port's launch counters
+COUNTERS = (
+    ("dxrpathtracer_tpu_torch.accel.traverse", "KERNEL_LAUNCHES"),
+    ("dxrpathtracer_tpu_torch.accel.packet", "KERNEL_LAUNCHES"),
+    ("dxrpathtracer_tpu_torch.accel.sunspace", "KERNEL_LAUNCHES"),
+    ("dxrpathtracer_tpu_torch.accel.sunspace", "ALPHA_KERNEL_LAUNCHES"),
+    ("dxrpathtracer_tpu_torch.accel.proxy", "KERNEL_LAUNCHES"),
+    ("dxrpathtracer_tpu_torch.accel.history", "KERNEL_LAUNCHES"),
+    ("dxrpathtracer_tpu_torch.render.swraster", "KERNEL_LAUNCHES"),
+    ("dxrpathtracer_tpu_torch.accel.gather", "KERNEL_LAUNCHES"),
+)
+
+
+def _span(name, fn):
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(SPAN_PREFIX + name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def install_spans():
+    """Wrap the calls of SPANS in record_function ranges."""
+    import importlib
+    for mod_name, attr, span in SPANS:
+        mod = importlib.import_module(mod_name)
+        owner, leaf = mod, attr
+        if "." in attr:
+            cls, leaf = attr.split(".")
+            owner = getattr(mod, cls)
+        setattr(owner, leaf, _span(span, getattr(owner, leaf)))
+
+
+class GatherRecorder:
+    """Wraps the gather kernel's launch; while `on`, keeps each call's ids
+    and the table's row width and rows."""
+
+    def __init__(self):
+        from dxrpathtracer_tpu_torch.accel import gather
+        self.calls = []
+        self.on = False
+        inner = gather._launch_kernel
+
+        def launch(table, idx):
+            if self.on:
+                self.calls.append((idx, table.shape[0], table.shape[1],
+                                   table.element_size()))
+            return inner(table, idx)
+        gather._launch_kernel = launch
+
+    def bytes_needed(self) -> int:
+        """Each call's distinct rows read, its ids read and its rows
+        written, each byte once."""
+        total = 0
+        for idx, _rows, width, esize in self.calls:
+            distinct = int(torch.unique(idx).numel())
+            total += (distinct * width * esize + idx.numel() * 4
+                      + idx.numel() * width * esize)
+        return total
+
+
+def read_counters() -> dict:
+    import importlib
+    out = {}
+    for mod_name, name in COUNTERS:
+        val = getattr(importlib.import_module(mod_name), name)
+        short = mod_name.rsplit(".", 1)[-1]
+        if isinstance(val, dict):
+            for k, v in val.items():
+                out[f"{short}.{k}"] = int(v)
+        else:
+            out[f"{short}.{name.lower()}"] = int(val)
+    return out
+
+
+def counter_deltas(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def profiled(spans: bool):
+    """A torch profiler of the card's activity; with `spans`, of the host's
+    too (the ptbench spans among it), which slows the host."""
+    acts = []
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    if spans or not acts:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+
+
+def _union(intervals):
+    """Total length and merged list of [start, end) intervals."""
+    merged = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            if e > merged[-1][1]:
+                merged[-1][1] = e
+        else:
+            merged.append([s, e])
+    return sum(e - s for s, e in merged), merged
+
+
+STRETCH = "stretch"
+NAME_CHARS = 120  # of a device operation's name in the breakdown
+
+
+def _by_kernel(ops) -> list:
+    """[(base name, launches, seconds)] of the traced operations, the most
+    time first."""
+    acc = {}
+    for n, s, e in ops:
+        k = kernel_base_name(n) if is_kernel(n) else n
+        c, t = acc.get(k, (0, 0.0))
+        acc[k] = (c + 1, t + (e - s))
+    return sorted(((k, c, t) for k, (c, t) in acc.items()),
+                  key=lambda r: -r[2])
+
+
+def _events(prof):
+    """(device operations [(name, start s, end s)], host spans [(start s,
+    end s, name)]) of a profile; device-side copies of host annotations
+    are not operations."""
+    dev_type = torch.autograd.DeviceType.CUDA
+    ops, spans = [], []
+    for e in prof.events():
+        tr = e.time_range
+        annotation = (e.name.startswith(SPAN_PREFIX)
+                      or getattr(e, "is_user_annotation", False))
+        if e.device_type == dev_type and not annotation:
+            ops.append((e.name, tr.start / 1e6, tr.end / 1e6))
+        elif e.device_type != dev_type and e.name.startswith(SPAN_PREFIX):
+            spans.append((tr.start / 1e6, tr.end / 1e6,
+                          e.name[len(SPAN_PREFIX):]))
+    return ops, spans
+
+
+def device_summary(prof, window_s: float, top: int = 10) -> dict:
+    """What the per-layer readers read from a profile of the card alone
+    over a stretch of `window_s` seconds on the host clock (the traced
+    steps and the synchronise that ends them; the card is idle before it,
+    since each step ends in one): {window_s, busy_s (the union of the
+    operations' intervals), device_ops [(name, start, end)], top_ops
+    [(name, seconds)], ops_by_kernel}."""
+    ops, _ = _events(prof)
+    busy, _ = _union([(s, e) for _, s, e in ops])
+    by_op = {}
+    for n, s, e in ops:
+        by_op[n] = by_op.get(n, 0.0) + (e - s)
+    top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])
+    return {"window_s": window_s, "busy_s": busy, "device_ops": ops,
+            "top_ops": [(n[:NAME_CHARS], t) for n, t in top_ops[:top]],
+            "ops_by_kernel": _by_kernel(ops)}
+
+
+def idle_gaps(prof, top: int = 10) -> list:
+    """[(span, seconds)] of a profile of host and card over its STRETCH
+    span: the card's idle time, each gap named by the innermost ptbench
+    span the host was in when it began ("host" outside them), the most
+    first. The host's own profiling lengthens the gaps."""
+    ops, spans = _events(prof)
+    stretch = [(s, e) for s, e, n in spans if n == STRETCH]
+    if len(stretch) != 1:
+        raise RuntimeError(f"trace: {len(stretch)} stretch spans, want 1")
+    w0, w1 = stretch[0]
+    spans = sorted(sp for sp in spans if sp[2] != STRETCH)
+    ops = [(max(s, w0), min(e, w1)) for _, s, e in ops if e > w0 and s < w1]
+    _, merged = _union(ops)
+    edges = [w0] + [x for iv in merged for x in iv] + [w1]
+    gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
+            if edges[i + 1] > edges[i]]
+    starts = [s for s, _, _ in spans]
+
+    def span_at(t):
+        # the innermost (latest-starting) span open at t
+        i = bisect.bisect_right(starts, t)
+        for j in range(i - 1, max(-1, i - 200), -1):
+            s, e, name = spans[j]
+            if s <= t < e:
+                return name
+        return "host"
+
+    by_span = {}
+    for s, e in gaps:
+        name = span_at(s)
+        by_span[name] = by_span.get(name, 0.0) + (e - s)
+    return sorted(by_span.items(), key=lambda kv: -kv[1])[:top]
