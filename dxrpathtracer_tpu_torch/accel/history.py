@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..app.profiler import spanned
 from ..buildlib import build_shared_library, nvcc
 from .traverse import NVCC_FLAGS, HitRecord, moller_trumbore
 
@@ -164,6 +165,7 @@ def revalidate(tri_table, pred_tri, ray_o, ray_d, t_min, t_max, active=None):
     raise ValueError(f"no history revalidation for device {dev}")
 
 
+@spanned("traverse.history")
 def seeded_closest(base_fn, tri_table, pred_tri, ray_o, ray_d, t_min, t_max,
                    active):
     """Closest hit with last sample's per-lane triangle as the t bound.
@@ -183,6 +185,7 @@ def seeded_closest(base_fn, tri_table, pred_tri, ray_o, ray_d, t_min, t_max,
     return merged, torch.where(active, merged.tri_id, -1)
 
 
+@spanned("traverse.history")
 def seeded_any(base_rec_fn, tri_table, pred_tri, ray_o, ray_d, t_min, t_max,
                active):
     """Sun visibility with last sample's per-lane occluder retested first.

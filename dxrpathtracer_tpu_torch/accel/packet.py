@@ -33,6 +33,7 @@ from pathlib import Path
 
 import torch
 
+from ..app.profiler import spanned
 from ..buildlib import build_shared_library, nvcc
 from .bvh import LEAF_SIZE, RECORD, FlatBVH
 from .traverse import (_BIG, ALPHA_TID_BIT, MAX_STACK, NVCC_FLAGS, HitRecord,
@@ -466,6 +467,7 @@ def _packet(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active,
     raise ValueError(f"no packet traversal for device {dev}")
 
 
+@spanned("traverse.packet_closest")
 def packet_closest_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max,
                        active=None, exclude_alpha: bool = False) -> HitRecord:
     """Closest hit over coherent packets of a W8 table (N % 128 == 0); misses
@@ -497,6 +499,7 @@ def packet_any_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None):
     return packet_any_hit_rec(bvh, ray_o, ray_d, t_min, t_max, active)[0]
 
 
+@spanned("traverse.packet_any")
 def packet_any_hit_rec(bvh: FlatBVH, ray_o, ray_d, t_min, t_max,
                        active=None, exclude_alpha: bool = False):
     """packet_any_hit that also returns the occluder: (visibility, the

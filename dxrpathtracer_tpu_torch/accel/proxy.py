@@ -41,6 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..app.profiler import spanned
 from ..buildlib import build_shared_library, nvcc
 from .bvh import morton_codes_30
 from .traverse import (NVCC_FLAGS, HitRecord, moller_trumbore, safe_inv,
@@ -455,6 +456,7 @@ def proxy_closest(proxy: DenseProxy, ray_o, ray_d, t_min, t_max,
     raise ValueError(f"no proxy_closest for device {dev}")
 
 
+@spanned("traverse.proxy_seed")
 def seeded_closest(closest_fn, proxy: DenseProxy, ray_o, ray_d, t_min,
                    t_max, active) -> HitRecord:
     """Proxy-seeded closest hit: closest_fn(o, d, t_min, t_max, active), a
@@ -476,6 +478,7 @@ def seeded_closest(closest_fn, proxy: DenseProxy, ray_o, ray_d, t_min,
                      v=torch.where(hit, rec.v, seed.v))
 
 
+@spanned("traverse.cut")
 def cut_clear(cut: AABBCut, ray_o, ray_d, t_min, t_max, active=None):
     """(N,) bool: True where an active lane's segment overlaps none of the
     cut's boxes — a definitive miss; False leaves the lane to the walk."""
@@ -483,6 +486,7 @@ def cut_clear(cut: AABBCut, ray_o, ray_d, t_min, t_max, active=None):
                   t_min, t_max, active)
 
 
+@spanned("traverse.screened")
 def screened_any(any_fn, ray_o, ray_d, t_min, t_max, active,
                  proxy: DenseProxy | None = None, cut: AABBCut | None = None):
     """Any-hit visibility (N,) f32, 1 = unoccluded, with the screens in

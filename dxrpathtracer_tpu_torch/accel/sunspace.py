@@ -35,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..app.profiler import spanned
 from ..buildlib import build_shared_library, nvcc
 from ..scene.types import TRI_SHADE_WIDTH
 from .bvh import LEAF_SIZE, RECORD
@@ -426,6 +427,7 @@ def sun_any_hit_plain(grid: SunGrid, ray_o, ray_d, t_min, t_max, active,
 # Entry point
 # ---------------------------------------------------------------------------
 
+@spanned("traverse.sun_grid")
 def sun_any_hit(grid: SunGrid, ray_o, ray_d, t_min, t_max, active=None,
                 alpha=None):
     """Sun shadow visibility (N,) f32 in {0, 1}, 1 = unoccluded. ray_d must

@@ -39,6 +39,7 @@ from pathlib import Path
 
 import torch
 
+from ..app.profiler import spanned
 from ..buildlib import build_shared_library, nvcc
 from ..scene.textures import bilinear_from_meta
 from ..scene.types import (PACKED_SLOTS, TRI_SHADE_META, TRI_SHADE_VTX,
@@ -534,6 +535,7 @@ def _traverse(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active,
     raise ValueError(f"no traversal for device {dev}")
 
 
+@spanned("traverse.closest")
 def closest_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None,
                 alpha: AlphaTest | None = None) -> HitRecord:
     """Closest-hit traversal of a flat ray batch.
@@ -552,6 +554,7 @@ def any_hit(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None,
     return any_hit_rec(bvh, ray_o, ray_d, t_min, t_max, active, alpha)[0]
 
 
+@spanned("traverse.any")
 def any_hit_rec(bvh: FlatBVH, ray_o, ray_d, t_min, t_max, active=None,
                 alpha: AlphaTest | None = None):
     """any_hit that also returns the occluder: (visibility, the triangle

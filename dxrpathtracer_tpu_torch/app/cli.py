@@ -5,7 +5,8 @@ is a flag, as in the JAX package, plus each command's own. `render`
 path-traces, or with `--raster` (or EnableRayTracing=false) renders one
 forward-shaded frame, lit from a `bake --output FILE.npz` bundle with
 `--lightmap`; `--profile-trace DIR` writes a torch.profiler trace of the
-render. `animate` renders a turntable of the scene with its W8 table
+render with the program's spans (app/profiler.py) on the kernels' timeline,
+and prints the host syncs counted under each span. `animate` renders a turntable of the scene with its W8 table
 rebuilt on the device every frame. `interactive` is the terminal viewer
 (app/interactive.py); `--script 'w:2,l:1,:4'` drives it without a
 terminal. `--asset-root DIR` imports the scene's FBX from DIR (the
@@ -288,8 +289,10 @@ def main(argv=None):
                                "reference's EnableLightMapRender, "
                                "Mesh.hlsl:155-162)")
     p_render.add_argument("--profile-trace", type=str, default=None,
-                          help="write a torch.profiler trace of the render "
-                               "to DIR/trace.json (Chrome trace format)")
+                          help="write a torch.profiler trace of the render, "
+                               "the program's dxrpt.* spans among its kernels, "
+                               "to DIR/trace.json (Chrome trace format) and "
+                               "print the host syncs counted by span")
     p_render.add_argument("--progress", action="store_true", default=True)
     p_render.add_argument("--device", type=str, default="cuda",
                           help="torch device; 'cpu' runs the plain versions")

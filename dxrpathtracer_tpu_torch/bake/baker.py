@@ -30,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from ..app.profiler import span, spanned
 from ..app.settings import AppSettings
 from ..core import cmj
 from ..core.constants import FP32Max
@@ -53,6 +54,7 @@ MIN_LUMINANCE = 1e-4        # Baking.hlsl:427
 MAX_SLAB_TEXELS = 1 << 21
 
 
+@spanned("bake.slab")
 def bake_sample(scene, bvh, sky_cube, settings: AppSettings,
                 frame: FrameConstants, surface_pos, surface_nrm, accum,
                 sample_index: int, row_offset: int = 0, total_texels=None,
@@ -70,56 +72,63 @@ def bake_sample(scene, bvh, sky_cube, settings: AppSettings,
     dev = surface_pos.device
     f32 = torch.float32
 
-    pos = surface_pos[..., :3].reshape(n, 3)
-    coverage = surface_pos[..., 3].reshape(n) > 0.0
-    nrm = surface_nrm.reshape(n, 3)
-    nrm_len2 = dot(nrm, nrm)
-    covered = coverage & (nrm_len2 >= 1e-4)  # Baking.hlsl:363-369
-    normal = nrm / sqrt(torch.clamp_min(nrm_len2, 1e-20))[..., None]
+    with span("bake.rays"):
+        pos = surface_pos[..., :3].reshape(n, 3)
+        coverage = surface_pos[..., 3].reshape(n) > 0.0
+        nrm = surface_nrm.reshape(n, 3)
+        nrm_len2 = dot(nrm, nrm)
+        covered = coverage & (nrm_len2 >= 1e-4)  # Baking.hlsl:363-369
+        normal = nrm / sqrt(torch.clamp_min(nrm_len2, 1e-20))[..., None]
 
-    # TBN from the up-vector method (Baking.hlsl:376-379)
-    z_up = torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=dev).expand(n, 3)
-    x_up = torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=dev).expand(n, 3)
-    up = torch.where((normal[:, 2].abs() < 0.999)[..., None], z_up, x_up)
-    tangent = cross(up, normal)
-    tangent = tangent / torch.clamp_min(
-        sqrt(dot(tangent, tangent)), 1e-12)[..., None]
-    bitangent = cross(normal, tangent)
+        # TBN from the up-vector method (Baking.hlsl:376-379)
+        z_up = torch.tensor([0.0, 0.0, 1.0], dtype=f32,
+                            device=dev).expand(n, 3)
+        x_up = torch.tensor([1.0, 0.0, 0.0], dtype=f32,
+                            device=dev).expand(n, 3)
+        up = torch.where((normal[:, 2].abs() < 0.999)[..., None], z_up, x_up)
+        tangent = cross(up, normal)
+        tangent = tangent / torch.clamp_min(
+            sqrt(dot(tangent, tangent)), 1e-12)[..., None]
+        bitangent = cross(normal, tangent)
 
-    pixel_idx = (torch.arange(n, dtype=torch.int64, device=dev)
-                 + int(row_offset) * s_res) & 0xFFFFFFFF
-    sqrt_n = int(settings.sqrt_num_samples)
-    u2 = cmj.sample_cmj_2d(int(sample_index), sqrt_n, sqrt_n, pixel_idx)
-    dir_ts = sample_cosine_hemisphere(u2[..., 0], u2[..., 1])
-    ray_dir = (dir_ts[:, 0:1] * tangent + dir_ts[:, 1:2] * bitangent
-               + dir_ts[:, 2:3] * normal)
-    ray_o = pos + ray_dir * 1e-5
+        pixel_idx = (torch.arange(n, dtype=torch.int64, device=dev)
+                     + int(row_offset) * s_res) & 0xFFFFFFFF
+        sqrt_n = int(settings.sqrt_num_samples)
+        u2 = cmj.sample_cmj_2d(int(sample_index), sqrt_n, sqrt_n, pixel_idx)
+        dir_ts = sample_cosine_hemisphere(u2[..., 0], u2[..., 1])
+        ray_dir = (dir_ts[:, 0:1] * tangent + dir_ts[:, 1:2] * bitangent
+                   + dir_ts[:, 2:3] * normal)
+        ray_o = pos + ray_dir * 1e-5
 
-    radiance = trace_paths(
-        scene, bvh, bvh, sky_cube, settings, frame, ray_o, ray_dir,
-        torch.full((n,), FP32Max, dtype=f32, device=dev), pixel_idx,
-        n_total, first_set_idx=1, initial_is_diffuse=True, t_min0=1e-4,
-        active0=covered, sample_idx=int(sample_index), sun_grid=sun_grid,
-        proxy=proxy)
+    with span("paths"):
+        radiance = trace_paths(
+            scene, bvh, bvh, sky_cube, settings, frame, ray_o, ray_dir,
+            torch.full((n,), FP32Max, dtype=f32, device=dev), pixel_idx,
+            n_total, first_set_idx=1, initial_is_diffuse=True, t_min0=1e-4,
+            active0=covered, sample_idx=int(sample_index), sun_grid=sun_grid,
+            proxy=proxy)
 
     # --- firefly clamp + validity accumulation (Baking.hlsl:426-465) ---
-    color_sum = accum[..., :3].reshape(n, 3)
-    valid_count = accum[..., 3].reshape(n)
-    avg = color_sum / torch.clamp_min(valid_count, 1.0)[..., None]
-    avg_lum = luminance(avg) + 0.001
-    smp_lum = luminance(radiance)
-    clamp_scale = torch.where(
-        (valid_count >= 1.0) & (smp_lum > avg_lum * FIREFLY_MULTIPLIER),
-        avg_lum * FIREFLY_MULTIPLIER / torch.clamp_min(smp_lum, 1e-20), 1.0)
-    new_sample = radiance * clamp_scale[..., None]
+    with span("bake.clamp"):
+        color_sum = accum[..., :3].reshape(n, 3)
+        valid_count = accum[..., 3].reshape(n)
+        avg = color_sum / torch.clamp_min(valid_count, 1.0)[..., None]
+        avg_lum = luminance(avg) + 0.001
+        smp_lum = luminance(radiance)
+        clamp_scale = torch.where(
+            (valid_count >= 1.0) & (smp_lum > avg_lum * FIREFLY_MULTIPLIER),
+            avg_lum * FIREFLY_MULTIPLIER / torch.clamp_min(smp_lum, 1e-20),
+            1.0)
+        new_sample = radiance * clamp_scale[..., None]
 
-    is_nan = new_sample.isnan().any(dim=-1)
-    valid = covered & ~is_nan & (luminance(new_sample) >= MIN_LUMINANCE)
+        is_nan = new_sample.isnan().any(dim=-1)
+        valid = covered & ~is_nan & (luminance(new_sample) >= MIN_LUMINANCE)
 
-    color_sum = color_sum + torch.where(valid[..., None], new_sample, 0.0)
-    valid_count = valid_count + valid.to(f32)
-    return torch.cat([color_sum, valid_count[..., None]], -1).reshape(
-        s_rows, s_res, 4)
+        color_sum = color_sum + torch.where(valid[..., None], new_sample,
+                                            0.0)
+        valid_count = valid_count + valid.to(f32)
+        return torch.cat([color_sum, valid_count[..., None]], -1).reshape(
+            s_rows, s_res, 4)
 
 
 def lightmap_from_accum(accum):
@@ -171,9 +180,12 @@ class Baker:
                                  dtype=torch.float32, device=self.device)
         self.sample_index = 0
 
+    @spanned("bake")
     def bake_step(self):
         """One sample for every covered texel, slab by slab; each slab's
-        rows of `accum` are replaced in place."""
+        rows of `accum` are replaced in place. Traced (app/profiler.py), it
+        is the span `bake`, each slab a `bake.slab` of its rays
+        (`bake.rays`), their paths and its clamp (`bake.clamp`)."""
         sess = self.session
         frame = sess.frame_constants(sess.sample_idx)
         pos = self.surface_maps["position"]

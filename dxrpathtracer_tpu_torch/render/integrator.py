@@ -99,6 +99,7 @@ from ..accel.packet import (LEAF_EXTRACT, PACKET, packet_any_hit,
 from ..accel.proxy import cut_clear, screened_any
 from ..accel.sunspace import sun_any_hit
 from ..accel.traverse import AlphaTest, HitRecord, any_hit, closest_hit
+from ..app.profiler import span, spanned
 from ..app.settings import SPOT_SHADOW_NEAR_CLIP, AppSettings
 from ..core import brdf as brdf_lib
 from ..core import cmj
@@ -158,8 +159,9 @@ def _fetch_shade_inputs(scene, tri_id, u, v):
 def _sample_packed(scene, packed, uv, slot):
     """Texture tap of material slot `slot` via the packed meta row."""
     k = 3 * PACKED_SLOTS.index(slot)
-    return bilinear_from_meta(scene.texels, packed[..., k],
-                              packed[..., k + 1], packed[..., k + 2], uv)
+    with span("shade.taps"):
+        return bilinear_from_meta(scene.texels, packed[..., k],
+                                  packed[..., k + 1], packed[..., k + 2], uv)
 
 
 def _to_tangent(v_ws, tan, bit, nrm):
@@ -290,6 +292,7 @@ def _alpha_resolve_all(kcand_fn, accept, o, d, t_min, bound, active,
                      v=torch.where(take, cands["v"][:, -1], win.v))
 
 
+@spanned("traverse.split_alpha")
 def _split_alpha_closest(opq_fn, kcand_fn, accept, o, d, t_min, t_max,
                          active):
     """The split alpha route's closest hit (JAX `_split_alpha_closest`):
@@ -301,6 +304,7 @@ def _split_alpha_closest(opq_fn, kcand_fn, accept, o, d, t_min, t_max,
                               rec)
 
 
+@spanned("traverse.split_alpha")
 def _split_alpha_visibility(opq_any_fn, kcand_fn, accept, o, d, t_min,
                             t_max, active):
     """The split alpha route's shadow visibility (JAX
@@ -400,16 +404,17 @@ def _shade_vertex(scene, sky_cube, settings: AppSettings, frame: FrameConstants,
     missed = active & ~hit
 
     # ---- Miss shader (RayTrace.hlsl:509-530) ----
-    if furnace:
-        miss_rad = torch.ones((n, 3), dtype=f32, device=dev)
-    else:
-        miss_rad = _sky_radiance(sky_cube, s, ray_d)
-        if depth == 1:
-            cos_sun = dot(ray_d, frame.sun_direction_ws[None, :])
-            in_disc = cos_sun >= frame.cos_sun_angular_radius
-            miss_rad = torch.where(in_disc[..., None],
-                                   frame.sun_render_color[None, :], miss_rad)
-    total = total + torch.where(missed[..., None], beta * miss_rad, 0.0)
+    with span("shade.miss"):
+        if furnace:
+            miss_rad = torch.ones((n, 3), dtype=f32, device=dev)
+        else:
+            miss_rad = _sky_radiance(sky_cube, s, ray_d)
+            if depth == 1:
+                cos_sun = dot(ray_d, frame.sun_direction_ws[None, :])
+                in_disc = cos_sun >= frame.cos_sun_angular_radius
+                miss_rad = torch.where(in_disc[..., None],
+                                       frame.sun_render_color[None, :], miss_rad)
+        total = total + torch.where(missed[..., None], beta * miss_rad, 0.0)
     state = dict(state, total=total)
 
     # ---- PathTrace early-outs (RayTrace.hlsl:153-158) ----
@@ -418,8 +423,9 @@ def _shade_vertex(scene, sky_cube, settings: AppSettings, frame: FrameConstants,
         return state, (), {}
 
     # ---- Hit surface ----
-    pos, geo_n, uv, tan, bit, mat, packed_mm = _fetch_shade_inputs(
-        scene, rec.tri_id, rec.u, rec.v)
+    with span("shade.fetch"):
+        pos, geo_n, uv, tan, bit, mat, packed_mm = _fetch_shade_inputs(
+            scene, rec.tri_id, rec.u, rec.v)
     incoming_dir = ray_d
     incoming_origin = ray_o
 
@@ -487,118 +493,121 @@ def _shade_vertex(scene, sky_cube, settings: AppSettings, frame: FrameConstants,
     shadow_reqs = []  # (origin, dir, tmin, tmax, mask); order = _shadow_plan
 
     # ---- Sun NEE (RayTrace.hlsl:224-262) ----
-    if s.enable_sun and not furnace:
-        sun_d = frame.sun_direction_ws[None, :]
-        if s.sun_area_light_approximation:
-            r_vec = reflect(incoming_dir, normal_ws)
-            d_dot_r = dot(sun_d, r_vec)
-            s_vec = r_vec - d_dot_r[..., None] * sun_d
-            closest = (frame.cos_sun_angular_radius * sun_d
-                       + normalize(s_vec, eps=1e-37) * frame.sin_sun_angular_radius)
-            shade_sun_dir = torch.where(
-                (d_dot_r < frame.cos_sun_angular_radius)[..., None],
-                normalize(closest, eps=1e-37), r_vec)
+    with span("shade.sun"):
+        if s.enable_sun and not furnace:
+            sun_d = frame.sun_direction_ws[None, :]
+            if s.sun_area_light_approximation:
+                r_vec = reflect(incoming_dir, normal_ws)
+                d_dot_r = dot(sun_d, r_vec)
+                s_vec = r_vec - d_dot_r[..., None] * sun_d
+                closest = (frame.cos_sun_angular_radius * sun_d
+                           + normalize(s_vec, eps=1e-37) * frame.sin_sun_angular_radius)
+                shade_sun_dir = torch.where(
+                    (d_dot_r < frame.cos_sun_angular_radius)[..., None],
+                    normalize(closest, eps=1e-37), r_vec)
+            else:
+                shade_sun_dir = sun_d.expand(n, 3)
+            # Lanes facing away from the sun contribute exactly 0 (calc_lighting
+            # multiplies by saturate(NdotL)): skip their occlusion walk.
+            sun_relevant = hit & (dot(normal_ws, shade_sun_dir) > 0.0)
+            shadow_reqs.append((pos, sun_d.expand(n, 3).contiguous(),
+                                torch.full((n,), 1e-5, dtype=f32, device=dev),
+                                torch.full((n,), FP32Max, dtype=f32, device=dev),
+                                sun_relevant))
+            sun_light = brdf_lib.calc_lighting(
+                normal_ws, shade_sun_dir, frame.sun_irradiance[None, :],
+                diffuse_albedo, specular_albedo, roughness, pos,
+                incoming_origin, ms_comp)
         else:
-            shade_sun_dir = sun_d.expand(n, 3)
-        # Lanes facing away from the sun contribute exactly 0 (calc_lighting
-        # multiplies by saturate(NdotL)): skip their occlusion walk.
-        sun_relevant = hit & (dot(normal_ws, shade_sun_dir) > 0.0)
-        shadow_reqs.append((pos, sun_d.expand(n, 3).contiguous(),
-                            torch.full((n,), 1e-5, dtype=f32, device=dev),
-                            torch.full((n,), FP32Max, dtype=f32, device=dev),
-                            sun_relevant))
-        sun_light = brdf_lib.calc_lighting(
-            normal_ws, shade_sun_dir, frame.sun_irradiance[None, :],
-            diffuse_albedo, specular_albedo, roughness, pos,
-            incoming_origin, ms_comp)
-    else:
-        sun_light = None
+            sun_light = None
 
     # ---- Spot-light NEE (RayTrace.hlsl:264-313) ----
-    spot_contribs = []  # (light, relevant), aligned with shadow_reqs order
-    lights = scene.lights
-    for li in range(_num_lights(scene, s)):
-        to_light = lights.position[li][None, :] - pos
-        dist = sqrt(torch.clamp_min(dot(to_light, to_light), 1e-20))
-        to_light = to_light / dist[..., None]
-        angle_f = saturate(dot(to_light, lights.direction[li][None, :]))
-        ang_att = smoothstep(lights.angular_attenuation_y[li],
-                             lights.angular_attenuation_x[li], angle_f)
-        dd = dist / lights.range[li]
-        dd2 = dd * dd  # dd ** 4 as XLA's integer_pow: (dd*dd)*(dd*dd)
-        falloff = saturate(1.0 - dd2 * dd2)
-        falloff = (falloff * falloff) / (dist * dist + 1.0)
-        ang_att = ang_att * falloff
-        # NdotL <= 0 zeroes calc_lighting exactly: cull those lanes' shadow
-        # walk too, as the lanes outside the cone or range
-        relevant = hit & (ang_att > 0.0) & (dot(normal_ws, to_light) > 0.0)
-        shadow_reqs.append((
-            pos + normal_ws * 0.01, to_light,
-            torch.full((n,), SPOT_SHADOW_NEAR_CLIP, dtype=f32, device=dev),
-            torch.clamp_min(dist - SPOT_SHADOW_NEAR_CLIP,
-                            SPOT_SHADOW_NEAR_CLIP),
-            relevant))
-        light = brdf_lib.calc_lighting(
-            normal_ws, to_light,
-            lights.intensity[li][None, :] * ang_att[..., None],
-            diffuse_albedo, specular_albedo, roughness, pos,
-            incoming_origin, ms_comp)
-        spot_contribs.append((light, relevant))
+    with span("shade.spot"):
+        spot_contribs = []  # (light, relevant), aligned with shadow_reqs order
+        lights = scene.lights
+        for li in range(_num_lights(scene, s)):
+            to_light = lights.position[li][None, :] - pos
+            dist = sqrt(torch.clamp_min(dot(to_light, to_light), 1e-20))
+            to_light = to_light / dist[..., None]
+            angle_f = saturate(dot(to_light, lights.direction[li][None, :]))
+            ang_att = smoothstep(lights.angular_attenuation_y[li],
+                                 lights.angular_attenuation_x[li], angle_f)
+            dd = dist / lights.range[li]
+            dd2 = dd * dd  # dd ** 4 as XLA's integer_pow: (dd*dd)*(dd*dd)
+            falloff = saturate(1.0 - dd2 * dd2)
+            falloff = (falloff * falloff) / (dist * dist + 1.0)
+            ang_att = ang_att * falloff
+            # NdotL <= 0 zeroes calc_lighting exactly: cull those lanes' shadow
+            # walk too, as the lanes outside the cone or range
+            relevant = hit & (ang_att > 0.0) & (dot(normal_ws, to_light) > 0.0)
+            shadow_reqs.append((
+                pos + normal_ws * 0.01, to_light,
+                torch.full((n,), SPOT_SHADOW_NEAR_CLIP, dtype=f32, device=dev),
+                torch.clamp_min(dist - SPOT_SHADOW_NEAR_CLIP,
+                                SPOT_SHADOW_NEAR_CLIP),
+                relevant))
+            light = brdf_lib.calc_lighting(
+                normal_ws, to_light,
+                lights.intensity[li][None, :] * ang_att[..., None],
+                diffuse_albedo, specular_albedo, roughness, pos,
+                incoming_origin, ms_comp)
+            spot_contribs.append((light, relevant))
 
     # ---- BRDF sampling (RayTrace.hlsl:315-376) ----
-    set_idx = first_set_idx + (depth - 1)
-    permutation = (set_idx * total_num_pixels + pixel_idx) & 0xFFFFFFFF
-    sqrt_n = int(s.sqrt_num_samples)
-    uv2 = cmj.sample_cmj_2d(cmj_sample_idx, sqrt_n, sqrt_n, permutation)
-    bx = uv2[..., 0]
-    by = uv2[..., 1]
+    with span("shade.sample"):
+        set_idx = first_set_idx + (depth - 1)
+        permutation = (set_idx * total_num_pixels + pixel_idx) & 0xFFFFFFFF
+        sqrt_n = int(s.sqrt_num_samples)
+        uv2 = cmj.sample_cmj_2d(cmj_sample_idx, sqrt_n, sqrt_n, permutation)
+        bx = uv2[..., 0]
+        by = uv2[..., 1]
 
-    selector = torch.where(enable_specular_l, bx, 0.0)
-    selector = torch.where(enable_diffuse_l, selector, 1.0)
-    pick_diffuse = selector < 0.5
+        selector = torch.where(enable_specular_l, bx, 0.0)
+        selector = torch.where(enable_diffuse_l, selector, 1.0)
+        pick_diffuse = selector < 0.5
 
-    # Diffuse branch
-    bx_d = torch.where(enable_specular_l, bx * 2.0, bx)
-    dir_ts_diff = sample_cosine_hemisphere(bx_d, by)
-    thr_diff = diffuse_albedo
+        # Diffuse branch
+        bx_d = torch.where(enable_specular_l, bx * 2.0, bx)
+        dir_ts_diff = sample_cosine_hemisphere(bx_d, by)
+        thr_diff = diffuse_albedo
 
-    # Specular branch (GGX VNDF)
-    bx_s = torch.where(enable_diffuse_l, (bx - 0.5) * 2.0, bx)
-    incoming_ts = normalize(_to_tangent(incoming_dir, tan, bit, frame_n), eps=1e-37)
-    m_ts = sample_ggx_visible_normal(-incoming_ts, roughness, roughness, bx_s, by)
-    dir_ts_spec = reflect(incoming_ts, m_ts)
-    n_ts = torch.zeros((n, 3), dtype=f32, device=dev)
-    n_ts[:, 2] = 1.0
-    if furnace:
-        fres = torch.ones((n, 3), dtype=f32, device=dev)
-    else:
-        fres = brdf_lib.fresnel(specular_albedo, m_ts, dir_ts_spec)
-    a2 = roughness * roughness
-    g1 = brdf_lib.smith_ggx_masking(n_ts, dir_ts_spec, -incoming_ts, a2)
-    g2 = brdf_lib.smith_ggx_masking_shadowing(n_ts, dir_ts_spec, -incoming_ts, a2)
-    thr_spec = fres * (g2 / torch.where(g1 == 0.0, 1.0, g1))[..., None]
-    if s.apply_multiscattering_energy_compensation:
-        # Reference quirk (RayTrace.hlsl:361): dot(normalTS=(0,0,1),
-        # -incomingRayDirWS) mixes spaces; equals -rayDir.z in world space.
-        ndv_q = saturate(-incoming_dir[..., 2])
-        ess_q, _ = brdf_lib.ggx_environment_brdf_scale_bias(ndv_q, sqrt_roughness)
-        thr_spec = thr_spec * (1.0 + specular_albedo * (1.0 / ess_q[..., None] - 1.0))
+        # Specular branch (GGX VNDF)
+        bx_s = torch.where(enable_diffuse_l, (bx - 0.5) * 2.0, bx)
+        incoming_ts = normalize(_to_tangent(incoming_dir, tan, bit, frame_n), eps=1e-37)
+        m_ts = sample_ggx_visible_normal(-incoming_ts, roughness, roughness, bx_s, by)
+        dir_ts_spec = reflect(incoming_ts, m_ts)
+        n_ts = torch.zeros((n, 3), dtype=f32, device=dev)
+        n_ts[:, 2] = 1.0
+        if furnace:
+            fres = torch.ones((n, 3), dtype=f32, device=dev)
+        else:
+            fres = brdf_lib.fresnel(specular_albedo, m_ts, dir_ts_spec)
+        a2 = roughness * roughness
+        g1 = brdf_lib.smith_ggx_masking(n_ts, dir_ts_spec, -incoming_ts, a2)
+        g2 = brdf_lib.smith_ggx_masking_shadowing(n_ts, dir_ts_spec, -incoming_ts, a2)
+        thr_spec = fres * (g2 / torch.where(g1 == 0.0, 1.0, g1))[..., None]
+        if s.apply_multiscattering_energy_compensation:
+            # Reference quirk (RayTrace.hlsl:361): dot(normalTS=(0,0,1),
+            # -incomingRayDirWS) mixes spaces; equals -rayDir.z in world space.
+            ndv_q = saturate(-incoming_dir[..., 2])
+            ess_q, _ = brdf_lib.ggx_environment_brdf_scale_bias(ndv_q, sqrt_roughness)
+            thr_spec = thr_spec * (1.0 + specular_albedo * (1.0 / ess_q[..., None] - 1.0))
 
-    ray_dir_ts = torch.where(pick_diffuse[..., None], dir_ts_diff, dir_ts_spec)
-    throughput = torch.where(pick_diffuse[..., None], thr_diff, thr_spec)
-    ray_dir_ws = normalize(_from_tangent(ray_dir_ts, tan, bit, frame_n), eps=1e-37)
-    throughput = torch.where((enable_diffuse_l & enable_specular_l)[..., None],
-                             throughput * 2.0, throughput)
+        ray_dir_ts = torch.where(pick_diffuse[..., None], dir_ts_diff, dir_ts_spec)
+        throughput = torch.where(pick_diffuse[..., None], thr_diff, thr_spec)
+        ray_dir_ws = normalize(_from_tangent(ray_dir_ts, tan, bit, frame_n), eps=1e-37)
+        throughput = torch.where((enable_diffuse_l & enable_specular_l)[..., None],
+                                 throughput * 2.0, throughput)
 
-    # Terminal sky-visibility ray (RayTrace.hlsl:411-438); lanes whose path
-    # weight is exactly zero in every channel need no visibility.
-    if not flags["continue_paths"] and not furnace:
-        term_weight = state["beta"] * throughput
-        shadow_reqs.append((pos, ray_dir_ws,
-                            torch.full((n,), 1e-5, dtype=f32, device=dev),
-                            torch.full((n,), FP32Max, dtype=f32, device=dev),
-                            hit & ~lane_dead
-                            & (term_weight != 0.0).any(dim=-1)))
+        # Terminal sky-visibility ray (RayTrace.hlsl:411-438); lanes whose path
+        # weight is exactly zero in every channel need no visibility.
+        if not flags["continue_paths"] and not furnace:
+            term_weight = state["beta"] * throughput
+            shadow_reqs.append((pos, ray_dir_ws,
+                                torch.full((n,), 1e-5, dtype=f32, device=dev),
+                                torch.full((n,), FP32Max, dtype=f32, device=dev),
+                                hit & ~lane_dead
+                                & (term_weight != 0.0).any(dim=-1)))
 
     mid = dict(hit=hit, lane_dead=lane_dead, local=local,
                throughput=throughput, ray_dir_ws=ray_dir_ws,
@@ -721,83 +730,88 @@ def trace_paths(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
         table = bvh if depth == 1 else ray_bvh
         args = (state["ray_o"], state["ray_d"], state["t_min"],
                 state["t_max"])
-        if (raster is not None and depth == 1 and use_packet and a is None
-                and not use_history and not raster.opaque_only):
-            rec = raster_closest_hit(raster, *args, state["active"])
-        elif (a is not None and split is not None and use_packet
-              and depth == 1):
-            # masked bins hold only opaque triangles: they are the
-            # opaque-only step (as JAX's, only without the history, which
-            # an alpha scene turns off)
-            if (raster is not None and raster.opaque_only
-                    and not use_history):
-                opq = lambda *r: raster_closest_hit(raster, *r)  # noqa: E731
+        with span("trace"):
+            if (raster is not None and depth == 1 and use_packet and a is None
+                    and not use_history and not raster.opaque_only):
+                rec = raster_closest_hit(raster, *args, state["active"])
+            elif (a is not None and split is not None and use_packet
+                  and depth == 1):
+                # masked bins hold only opaque triangles: they are the
+                # opaque-only step (as JAX's, only without the history, which
+                # an alpha scene turns off)
+                if (raster is not None and raster.opaque_only
+                        and not use_history):
+                    opq = lambda *r: raster_closest_hit(raster, *r)  # noqa: E731
+                else:
+                    opq = lambda *r: packet_closest_hit(  # noqa: E731
+                        bvh, *r, exclude_alpha=True)
+                rec = _split_alpha_closest(opq, kcand_fn, a, *args,
+                                           state["active"])
+            elif a is None and use_history and depth == 1:
+                base = (
+                    (lambda *r: packet_closest_hit(bvh, *r)) if use_packet
+                    else (lambda *r: closest_hit(bvh, *r)))
+                rec, new_history["prim_tri"] = history_lib.seeded_closest(
+                    base, history["tri_table"], history["prim_tri"], *args,
+                    state["active"])
+            elif a is None and use_packet and depth == 1:
+                rec = packet_closest_hit(bvh, *args, state["active"])
+            elif a is None and proxy_seed:
+                rec = proxy_lib.seeded_closest(
+                    lambda *r, table=table: closest_hit(table, *r), proxy,
+                    *args, state["active"])
             else:
-                opq = lambda *r: packet_closest_hit(  # noqa: E731
-                    bvh, *r, exclude_alpha=True)
-            rec = _split_alpha_closest(opq, kcand_fn, a, *args,
-                                       state["active"])
-        elif a is None and use_history and depth == 1:
-            base = (
-                (lambda *r: packet_closest_hit(bvh, *r)) if use_packet
-                else (lambda *r: closest_hit(bvh, *r)))
-            rec, new_history["prim_tri"] = history_lib.seeded_closest(
-                base, history["tri_table"], history["prim_tri"], *args,
-                state["active"])
-        elif a is None and use_packet and depth == 1:
-            rec = packet_closest_hit(bvh, *args, state["active"])
-        elif a is None and proxy_seed:
-            rec = proxy_lib.seeded_closest(
-                lambda *r, table=table: closest_hit(table, *r), proxy,
-                *args, state["active"])
-        else:
-            act = state["active"]
-            if cut is not None and a is None:
-                # a lane the cut clears is a miss: inactive, it keeps the
-                # miss record (t = t_max, tri_id = -1)
-                act = act & ~cut_clear(cut, *args, act)
-            rec = closest_hit(table, *args, act, alpha=a)
-        state, reqs, mid = _shade_vertex(
-            scene, sky_cube, s, frame, depth, flags, state, rec, pixel_idx,
-            total_num_pixels, first_set_idx, cmj_sample_idx)
+                act = state["active"]
+                if cut is not None and a is None:
+                    # a lane the cut clears is a miss: inactive, it keeps the
+                    # miss record (t = t_max, tri_id = -1)
+                    act = act & ~cut_clear(cut, *args, act)
+                rec = closest_hit(table, *args, act, alpha=a)
+        with span("shade"):
+            state, reqs, mid = _shade_vertex(
+                scene, sky_cube, s, frame, depth, flags, state, rec,
+                pixel_idx, total_num_pixels, first_set_idx, cmj_sample_idx)
         if flags["early_stop"]:
             break
         plan = _shadow_plan(scene, s, alpha is not None, flags)
         packet_depth = use_packet and (depth == 1
                                        or s.packet_shadows_all_depths)
         vis_list = [None] * len(reqs)
-        for kind, table, r, a, positions in _shadow_calls(bvh, ray_bvh, alpha,
-                                                          depth, plan, reqs):
-            packet_kind = packet_depth and (
-                kind == "sun"
-                or (kind == "terminal" and s.packet_shadows_all_depths))
-            if (a is None and kind == "sun" and sun_grid is not None
-                    and not (depth == 1 and use_packet)):
-                vis = sun_any_hit(sun_grid, *r)
-            elif (packet_kind and a is None and use_history and depth == 1
-                  and kind == "sun"):
-                vis, new_history["sun_tri"] = history_lib.seeded_any(
-                    lambda *q: packet_any_hit_rec(bvh, *q),
-                    history["tri_table"], history["sun_tri"], *r)
-            elif packet_kind and a is None:
-                vis = packet_any_hit(bvh, *r)
-            elif packet_kind and split is not None:
-                vis = _split_alpha_visibility(
-                    lambda *q: packet_any_hit_rec(bvh, *q,
-                                                  exclude_alpha=True),
-                    kcand_fn, a, *r)
-            elif packet_kind:
-                # the JAX package's packet punch-through: here the per-ray
-                # walk with the alpha test, unscreened
-                vis = any_hit(table, *r, alpha=a)
-            else:
-                vis = screened_any(
-                    lambda o, d, tn, tx, m, table=table, a=a: any_hit(
-                        table, o, d, tn, tx, m, alpha=a),
-                    *r, proxy=proxy if a is None else None, cut=cut)
-            for j, i in enumerate(positions):
-                vis_list[i] = vis[j * n:(j + 1) * n]
-        state = _apply_vertex(s, sky_cube, depth, flags, state, mid, vis_list)
+        with span("visibility"):
+            for kind, table, r, a, positions in _shadow_calls(
+                    bvh, ray_bvh, alpha, depth, plan, reqs):
+                packet_kind = packet_depth and (
+                    kind == "sun"
+                    or (kind == "terminal" and s.packet_shadows_all_depths))
+                if (a is None and kind == "sun" and sun_grid is not None
+                        and not (depth == 1 and use_packet)):
+                    vis = sun_any_hit(sun_grid, *r)
+                elif (packet_kind and a is None and use_history and depth == 1
+                      and kind == "sun"):
+                    vis, new_history["sun_tri"] = history_lib.seeded_any(
+                        lambda *q: packet_any_hit_rec(bvh, *q),
+                        history["tri_table"], history["sun_tri"], *r)
+                elif packet_kind and a is None:
+                    vis = packet_any_hit(bvh, *r)
+                elif packet_kind and split is not None:
+                    vis = _split_alpha_visibility(
+                        lambda *q: packet_any_hit_rec(bvh, *q,
+                                                      exclude_alpha=True),
+                        kcand_fn, a, *r)
+                elif packet_kind:
+                    # the JAX package's packet punch-through: here the per-ray
+                    # walk with the alpha test, unscreened
+                    vis = any_hit(table, *r, alpha=a)
+                else:
+                    vis = screened_any(
+                        lambda o, d, tn, tx, m, table=table, a=a: any_hit(
+                            table, o, d, tn, tx, m, alpha=a),
+                        *r, proxy=proxy if a is None else None, cut=cut)
+                for j, i in enumerate(positions):
+                    vis_list[i] = vis[j * n:(j + 1) * n]
+        with span("vertex_update"):
+            state = _apply_vertex(s, sky_cube, depth, flags, state, mid,
+                                  vis_list)
     radiance = torch.clamp(state["total"], 0.0, FP16Max)
     return radiance if history is None else (radiance, new_history)
 
@@ -895,27 +909,31 @@ def render_sample(scene, bvh, ray_bvh, sky_cube, settings: AppSettings,
     index) and the samples its running mean holds so far in
     `accum_sample_idx` (the lerp's)."""
     th = height if total_height is None else int(total_height)
-    ray_start, ray_dir, ray_len, pixel_idx = raygen(
-        settings, frame, width, height, accum.device, row_offset, th)
     dims = (_packet_tile_dims(height, width)
             if settings.enable_packet_traversal else None)
-    rays = (ray_start, ray_dir, ray_len, pixel_idx)
-    if dims is not None:
-        rays = tuple(_tile_order(x, height, width, *dims) for x in rays)
+    with span("raygen"):
+        rays = raygen(settings, frame, width, height, accum.device,
+                      row_offset, th)
+        if dims is not None:
+            rays = tuple(_tile_order(x, height, width, *dims) for x in rays)
     if raster is not None and (raster.ty, raster.tx) != dims:
         raster = None
-    radiance = trace_paths(scene, bvh, ray_bvh, sky_cube, settings, frame,
-                           *rays, width * th, first_set_idx=1,
-                           sun_grid=sun_grid, proxy=proxy, cut=cut,
-                           packet_coherent=dims is not None, history=history,
-                           raster=raster, alpha_bvh=alpha_bvh)
+    with span("paths"):
+        radiance = trace_paths(scene, bvh, ray_bvh, sky_cube, settings,
+                               frame, *rays, width * th, first_set_idx=1,
+                               sun_grid=sun_grid, proxy=proxy, cut=cut,
+                               packet_coherent=dims is not None,
+                               history=history, raster=raster,
+                               alpha_bvh=alpha_bvh)
     if history is not None:
         radiance, history = radiance
-    if dims is not None:
-        radiance = _untile_order(radiance, height, width, *dims)
-    radiance = radiance.reshape(height, width, 3)
-    idx = np.float32(frame.curr_sample_idx if accum_sample_idx is None
-                     else accum_sample_idx)
-    lerp_factor = float(idx / (idx + np.float32(1.0)))  # f32, as the reference
-    accum = radiance + (accum - radiance) * lerp_factor
+    with span("accumulate"):
+        if dims is not None:
+            radiance = _untile_order(radiance, height, width, *dims)
+        radiance = radiance.reshape(height, width, 3)
+        idx = np.float32(frame.curr_sample_idx if accum_sample_idx is None
+                         else accum_sample_idx)
+        # f32, as the reference
+        lerp_factor = float(idx / (idx + np.float32(1.0)))
+        accum = radiance + (accum - radiance) * lerp_factor
     return accum if history is None else (accum, history)

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..accel.traverse import NVCC_FLAGS, HitRecord, moller_trumbore
+from ..app.profiler import spanned
 from ..buildlib import build_shared_library, nvcc
 
 KERNEL_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "swraster.cu"
@@ -399,6 +400,7 @@ def raster_closest_hit_plain(bins: RasterBins, ray_o, ray_d, t_min, t_max,
                      v=torch.where(hit, rv[:, 0], 0.0))
 
 
+@spanned("traverse.raster")
 def raster_closest_hit(bins: RasterBins, ray_o, ray_d, t_min, t_max,
                        active=None) -> HitRecord:
     """Closest hit of camera rays in packet-tile order (each 128

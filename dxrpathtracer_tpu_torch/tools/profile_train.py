@@ -9,9 +9,8 @@ init_net, the optimizer's construction (CosineAdam, and torch.optim.Adam
 beside it for comparison: its constructor imports torch._dynamo), the
 first step (cuDNN's first calls), then STEPS steps pipelined (one
 synchronise at the end) and STEPS steps each synchronised (their median);
-then profile_bake.profile_step traces 10 steps with torch.profiler: device
-time, idle share and the kernels with the most device time. Needs a CUDA
-device.
+then `profile_step` traces 10 steps with torch.profiler: device time, idle
+share and the kernels with the most device time. Needs a CUDA device.
 """
 
 import statistics
@@ -21,10 +20,10 @@ import numpy as np
 import torch
 
 from ..render.learned_denoise import IN_CHANNELS, init_net
-from .profile_bake import profile_step
 from .train_denoiser import CosineAdam, train_step
 
 PATCHES, PATCH, BATCH, LR, STEPS = 2048, 64, 16, 1e-3, 200
+TOP = 25  # kernels listed by profile_step
 
 
 def _timed(label, fn):
@@ -35,6 +34,50 @@ def _timed(label, fn):
     torch.cuda.synchronize()
     print(f"{label}: {(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
     return out
+
+
+def profile_step(label: str, step):
+    """One warm-up call of step(), one timed, one traced; prints the wall
+    ms (profiled and not), the device time, the idle share and the kernels
+    with the most device time. Kernels of one stream run one at a time, so
+    their sum is the busy time."""
+    step()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+
+    # only the device's own rows: an op row (aten::index) repeats the time
+    # of the kernels it launched
+    rows = [(_self_device_us(e), e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"{label}: {plain_s * 1e3:.1f} ms unprofiled, "
+          f"{profiled_s * 1e3:.1f} ms profiled; device time "
+          f"{device_ms:.1f} ms in {sum(r[1] for r in rows)} launches; idle "
+          f"share {(1.0 - device_ms / (profiled_s * 1e3)) * 100:.1f} %")
+    for us, count, name in rows[:TOP]:
+        print(f"  {us / 1e3:9.2f} ms  {count:6d} x  {name[:110]}")
+
+
+def _self_device_us(event):
+    """Self device microseconds (the attribute's name varies by version)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(event, attr, None)
+        if value is not None:
+            return value
+    return 0.0
 
 
 def main():

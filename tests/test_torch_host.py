@@ -120,7 +120,7 @@ def test_renders_with_jax_blocked(tmp_path):
         "from dxrpathtracer_tpu_torch.bake.baker import Baker\n"
         "from dxrpathtracer_tpu_torch.render import (denoise, film,"
         " learned_denoise, postfx)\n"
-        "from dxrpathtracer_tpu_torch.tools import profile_bake\n"
+        "from dxrpathtracer_tpu_torch.tools import profile_train\n"
         "from dxrpathtracer_tpu_torch.accel import device_build\n"
         "from dxrpathtracer_tpu_torch.scene import animate, cache, fbx\n"
         "from dxrpathtracer_tpu_torch.tools import fbx_cases\n"
