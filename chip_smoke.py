@@ -34,7 +34,9 @@ fatal on failure:
   2. build: compiles the traversal kernel (csrc/traverse.cu), the row-gather
      kernel (csrc/gather.cu), the engines' kernels (csrc/packet.cu,
      csrc/sungrid.cu, csrc/screen.cu), the seeded routes' kernels
-     (csrc/history.cu, csrc/swraster.cu) and the native SAH and morton
+     (csrc/history.cu, csrc/swraster.cu), the material tap kernel
+     (csrc/taps.cu: its ptxas registers, stack frame and spills and the
+     warps one SM holds) and the native SAH and morton
      builders from the checkout, all at once, with the seconds each took;
      for each (width, first_hit, alpha) instantiation of the traversal
      kernel (eight), ptxas' registers, stack frame and spills and the warps
@@ -249,6 +251,17 @@ fatal on failure:
      (b) the shading row (the stand-in's (246084, 64) tri_shade by the
      2,073,600 depth-1 hit ids of one 1080p sample) and (c) the surface
      map's gathers at 4096^2; each with M rows/s and its bound;
+  7b. the material tap kernel (csrc/taps.cu) against its plain twin
+     (scene/textures.py::bilinear_from_meta_plain), bit for bit (NaN and
+     -0.0 included), on the benchmark's textured cells, built by ptbench's
+     runners: every tap of one pt1080-sponza frame (10 launches: five
+     slots at two vertices, the integrator's strided views) and of one
+     bake4096-sponza step (80: eight slabs), checked as they run; the
+     next step traced by the program's tracer counts 10 and 80
+     `tap_kernel` (its host syncs printed); 2,073,600 random uv in
+     [-2, 3) over the frame cell's materials' 1024^2 maps, five slots;
+     kernel and plain timed with CUDA events on each frame tap, each
+     random slot and the first slab's ten taps, each with its bound;
   8. same bake, kernels against plain: BoxTest at 64x64, 2 steps, on the
      card and on the CPU; relative RMSE <= 1e-4 and validCount equal.
   E3. engines card vs CPU: one engines-on BoxTest frame at 256x128 (packet
@@ -384,6 +397,10 @@ rows of `width` words moves its distinct rows, its indices and its output:
 (distinct*width + n + n*width)*4 B; beside it the script prints the time of
 n*width*4*2 + n*4 B, every gathered row counted as a read from memory.
 
+A material tap of n lanes moves each lane's uv, base, w and h and its
+output row (TAP_LANE_BYTES) and the distinct 32-B sectors of the texels
+its lanes read, each once: n*36 + sectors*32 B.
+
 An alpha class adds to its bound the texture taps its walk takes: TAP_OPS
 f32 operations and TAP_BYTES (four channel-0 texels) each. The plain walk
 steps the active rays only (an inactive ray keeps t_max and tri id -1
@@ -408,7 +425,9 @@ MT_OPS per triangle test they make (every column of an active lane; every
 pair's triangle against its tile's active lanes).
 
 The line before the last is {"kernels": [...]}: one entry per traversal
-instantiation, one for the gather kernel and one for each engine kernel
+instantiation, one for the gather kernel, one for the tap kernel (its
+ms, plain ms and bound are the frame's depth-1 albedo tap's) and one for
+each engine kernel
 (packet_closest, packet_any, sun_any_hit, proxy_blocked, cut_clear,
 history_revalidate, proxy_closest, raster_closest_hit, and the split
 alpha route's packet_closest_opaque, packet_any_opaque and
@@ -634,6 +653,7 @@ def phase_build():
     from dxrpathtracer_tpu_torch.accel import (bvh, gather, history, packet,
                                                proxy, sunspace, traverse)
     from dxrpathtracer_tpu_torch.render import swraster
+    from dxrpathtracer_tpu_torch.scene import taps
 
     def timed(fn):
         t0 = time.time()
@@ -642,6 +662,7 @@ def phase_build():
 
     jobs = {"traverse_s": traverse.kernel_library,
             "gather_s": gather.kernel_library,
+            "taps_s": taps.kernel_library,
             "packet_s": packet.kernel_library,
             "sungrid_s": sunspace.kernel_library,
             "screen_s": proxy.kernel_library,
@@ -657,12 +678,14 @@ def phase_build():
         f"{secs['gather_s']:.2f} s, packet.cu {secs['packet_s']:.2f} s, "
         f"sungrid.cu {secs['sungrid_s']:.2f} s, screen.cu "
         f"{secs['screen_s']:.2f} s, history.cu {secs['history_s']:.2f} s, "
-        f"swraster.cu {secs['swraster_s']:.2f} s, sah_builder.cpp (g++) "
+        f"swraster.cu {secs['swraster_s']:.2f} s, taps.cu "
+        f"{secs['taps_s']:.2f} s, sah_builder.cpp (g++) "
         f"{secs['sah_builder_s']:.2f} s, lbvh_builder.cpp (g++) "
         f"{secs['lbvh_builder_s']:.2f} s")
     for line in gather.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "stack frame" in line:
             log(f"  ptxas gather: {line.strip()}")
+    secs["taps_kernel"] = tap_ptxas(taps)
     kernels = ptxas_report(traverse.BUILD_LOG)
     for key, row in sorted(kernels.items()):
         row["resident_warps_per_sm"] = traverse.resident_warps(*key)
@@ -716,6 +739,18 @@ def phase_build():
     return secs
 
 
+def tap_ptxas(taps):
+    """ptxas' registers, stack frame and spills of the tap kernel and the
+    warps one SM holds at once (by the occupancy query of csrc/taps.cu)."""
+    row = ptxas_entries(taps.BUILD_LOG)["bilinear_tap"]
+    row["resident_warps_per_sm"] = taps.kernel_library() \
+        .dxrpt_tap_resident_warps()
+    log("  bilinear_tap: " + ", ".join(f"{k} {v}" for k, v in row.items()))
+    if row["resident_warps_per_sm"] <= 0:
+        raise SystemExit(f"chip_smoke: tap occupancy query failed: {row}")
+    return row
+
+
 def engine_resident_warps(packet, sunspace, proxy):
     """{kernel: warps one SM holds at once} of the packet kernels, the grid
     walk and the screens (the proxy at PROXY_K columns, the cut at CUT_C
@@ -745,7 +780,7 @@ def ptxas_entries(log_text):
     K> in its closest, any, opaque-only and K = 1..8 candidate
     instantiations, sungrid_kernel<alpha> opaque and alpha-tested,
     proxy_kernel, proxy_closest_kernel, cut_kernel, revalidate_kernel,
-    raster_kernel)."""
+    raster_kernel) and of the tap kernel (bilinear_tap_kernel)."""
     import re
     names = {"packet_kernelILb0ELb0ELi0E": "packet_closest",
              "packet_kernelILb1ELb0ELi0E": "packet_any",
@@ -762,7 +797,8 @@ def ptxas_entries(log_text):
              "proxy_closest_kernel": "proxy_closest",
              "cut_kernel": "cut_clear",
              "revalidate_kernel": "history_revalidate",
-             "raster_kernel": "raster_closest_hit"}
+             "raster_kernel": "raster_closest_hit",
+             "bilinear_tap_kernel": "bilinear_tap"}
     out, cur = {}, None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -1222,7 +1258,9 @@ def reset_launches():
     from dxrpathtracer_tpu_torch.accel import (gather, history, packet, proxy,
                                                sunspace, traverse)
     from dxrpathtracer_tpu_torch.render import swraster
+    from dxrpathtracer_tpu_torch.scene import taps
     gather.KERNEL_LAUNCHES = 0
+    taps.KERNEL_LAUNCHES = 0
     traverse.KERNEL_LAUNCHES.clear()
     packet.KERNEL_LAUNCHES.update(closest=0, any=0, closest_opaque=0,
                                   any_opaque=0, candidates=0)
@@ -1239,8 +1277,10 @@ def read_launches():
     from dxrpathtracer_tpu_torch.accel import (gather, history, packet, proxy,
                                                sunspace, traverse)
     from dxrpathtracer_tpu_torch.render import swraster
+    from dxrpathtracer_tpu_torch.scene import taps
     return {"traverse": sum(traverse.KERNEL_LAUNCHES.values()),
             "row_gather": gather.KERNEL_LAUNCHES,
+            "bilinear_tap": taps.KERNEL_LAUNCHES,
             "traverse_by_instance": {
                 instance_name(k): v
                 for k, v in sorted(traverse.KERNEL_LAUNCHES.items())},
@@ -1855,6 +1895,188 @@ def phase_gather(frame_sess, d1_hits, baker):
         cases[f"c_surface_{name}"] = gather_case(
             f"(c) surface map {name}", table, idx, repeat=5)
     return cases
+
+
+TAPS_SOURCE = "dxrpathtracer_tpu_torch/csrc/taps.cu"
+# no TPU kernel: the JAX package's tap, which XLA fuses
+TAPS_REPLACES = "dxrpathtracer_tpu/scene/textures.py:139"
+# a tap's lane: uv (8 B), base, w, h (12 B) in, one float4 (16 B) out
+TAP_LANE_BYTES = 36
+SECTOR_BYTES = 32
+TAP_FRAME_CELL, TAP_BAKE_CELL = "pt1080-sponza", "bake4096-sponza"
+TAP_SEED = 2147483731
+TAP_RANDOM_N = 1920 * 1080
+TAP_SLOTS = ("albedo", "normal", "roughness", "metallic", "emissive")
+
+
+def tap_texel_ids(base, w, h, uv):
+    """(4, n) int64: the four texel indices of each lane's tap, by the
+    twin's arithmetic (scene/textures.py::bilinear_from_meta_plain)."""
+    base, w, h = (t.reshape(-1) for t in (base, w, h))
+    uv = uv.reshape(-1, 2)
+    x0 = torch.floor(uv[:, 0] * w.to(torch.float32) - 0.5)
+    y0 = torch.floor(uv[:, 1] * h.to(torch.float32) - 0.5)
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    x1i = torch.remainder(x0i + 1, w)
+    y0i = torch.remainder(y0.to(torch.int32), h)
+    y1i = torch.remainder(y0i + 1, h)
+    return torch.stack([base + yi * w + xi for yi in (y0i, y1i)
+                        for xi in (x0i, x1i)]).long()
+
+
+def tap_mismatches(got, want):
+    """Lanes whose four channels differ in any bit (NaN and -0.0 too)."""
+    return int((got.view(torch.int32) != want.view(torch.int32))
+               .reshape(-1, 4).any(1).sum())
+
+
+@contextlib.contextmanager
+def checked_taps(calls):
+    """Inside, every launch of the tap kernel is held against the plain
+    twin on the same arguments, bit for bit, and appended to `calls` as
+    (lanes, mismatching lanes, arguments); a mismatch fails the run."""
+    from dxrpathtracer_tpu_torch.scene import taps, textures
+    launch = taps._launch_kernel
+
+    def checked(*args):
+        got = launch(*args)
+        bad = tap_mismatches(got, textures.bilinear_from_meta_plain(*args))
+        calls.append((int(args[1].numel()), bad, args))
+        if bad:
+            raise SystemExit(f"chip_smoke: tap kernel differs from plain "
+                             f"in {bad} of {args[1].numel()} lanes (call "
+                             f"{len(calls)})")
+        return got
+
+    taps._launch_kernel = checked
+    try:
+        yield
+    finally:
+        taps._launch_kernel = launch
+
+
+def tap_row(name, args, repeat):
+    """Kernel against plain on one tap's arguments: bit for bit, both
+    timed with CUDA events, and the kernel's bound: its lanes' inputs and
+    outputs (TAP_LANE_BYTES each) and the distinct 32-B sectors of the
+    texels they read, each once, over the card's memory rate."""
+    from dxrpathtracer_tpu_torch.scene import taps, textures
+    got = taps._launch_kernel(*args)
+    bad = tap_mismatches(got, textures.bilinear_from_meta_plain(*args))
+    if bad:
+        raise SystemExit(f"chip_smoke: tap kernel differs from plain on "
+                         f"{name} in {bad} lanes")
+    ms, _ = cuda_ms(lambda: taps._launch_kernel(*args), repeat)
+    plain_ms, _ = cuda_ms(lambda: textures.bilinear_from_meta_plain(*args),
+                          max(1, repeat // 5))
+    ids = tap_texel_ids(*args[1:])
+    n = int(args[1].numel())
+    texels = int(torch.unique(ids).numel())
+    sectors = int(torch.unique(ids * 16 // SECTOR_BYTES).numel())
+    b_ms, b_by = bound_ms(n * TAP_LANE_BYTES + sectors * SECTOR_BYTES)
+    row = {"n": n, "distinct_texels": texels, "distinct_sectors": sectors,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms, "mismatches": bad,
+           "max_abs_err": 0.0}
+    log(f"taps {name}: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in row.items()))
+    return row
+
+
+def tap_cell(name):
+    """The benchmark cell `name`'s runner (ptbench/modes/), set up on the
+    card: its textured scene and session, warmed."""
+    from ptbench import run as bench
+    spec = bench._load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    cell = bench.find_cell(spec, name)
+    config = bench.load_config(cell["config"])
+    traffic = bench.load_traffic(cell["traffic"])
+    runner = bench.load_mode(config["mode"]).Runner(
+        config, traffic, bench.load_scene(traffic),
+        TAP_SEED % bench.FIRST_SAMPLES, "cuda:0")
+    runner.setup()
+    return runner
+
+
+def traced_step(runner):
+    """One step inside the program's tracer: (tap_kernel, host_sync) counts
+    summed over its spans."""
+    from dxrpathtracer_tpu_torch.app.profiler import tracing
+    with tracing() as records:
+        runner.step()
+    return tuple(sum(r["counts"].get(k, 0) for r in records.values())
+                 for k in ("tap_kernel", "host_sync"))
+
+
+def checked_step(label, runner, want):
+    """One step of `runner` with every tap checked: exactly `want` launches
+    (taps.KERNEL_LAUNCHES), each bit for bit; the calls."""
+    from dxrpathtracer_tpu_torch.scene import taps
+    calls = []
+    before = taps.KERNEL_LAUNCHES
+    with checked_taps(calls):
+        runner.step()
+    launches = taps.KERNEL_LAUNCHES - before
+    if launches != want or len(calls) != want:
+        raise SystemExit(f"chip_smoke: {label}: {launches} tap launches "
+                         f"({len(calls)} checked), want {want}")
+    log(f"taps {label}: {launches} launches, lanes "
+        f"{sorted({c[0] for c in calls})}, 0 mismatching lanes")
+    return calls
+
+
+def phase_taps(smi):
+    """7b: the tap kernel against its twin on the benchmark's textured
+    frame and bake, and on random uv over the frame cell's maps."""
+    out = {"card": smi}
+    runner = tap_cell(TAP_FRAME_CELL)
+    calls = checked_step("frame (pt1080-sponza)", runner, 10)
+    taps_counted, syncs = traced_step(runner)
+    if taps_counted != 10:
+        raise SystemExit(f"chip_smoke: a traced frame counted "
+                         f"{taps_counted} tap_kernel, want 10")
+    out["frame"] = {"launches": len(calls), "traced_tap_kernel":
+                    taps_counted, "traced_host_syncs": syncs}
+    # the shading step's order: normal, albedo, metallic, roughness,
+    # emissive at each of the two vertices
+    order = ("normal", "albedo", "metallic", "roughness", "emissive")
+    for k, (_, _, args) in enumerate(calls):
+        out["frame"][f"d{k // 5 + 1}_{order[k % 5]}"] = tap_row(
+            f"frame d{k // 5 + 1} {order[k % 5]}", args, repeat=20)
+    scene = runner.session.scene
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    n = TAP_RANDOM_N
+    mat = torch.randint(0, scene.packed_meta.shape[0], (n,), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    packed = scene.packed_meta[mat.long()]
+    uv = torch.rand((n, 2), generator=gen, device=DEVICE) * 5.0 - 2.0
+    from dxrpathtracer_tpu_torch.scene.types import PACKED_SLOTS
+    for slot in TAP_SLOTS:
+        k = 3 * PACKED_SLOTS.index(slot)
+        out[f"random_{slot}"] = tap_row(
+            f"random uv [-2, 3) {slot}", (scene.texels, packed[:, k],
+                                          packed[:, k + 1], packed[:, k + 2],
+                                          uv), repeat=20)
+    del runner, calls, packed, uv, mat, scene
+    torch.cuda.empty_cache()
+
+    runner = tap_cell(TAP_BAKE_CELL)
+    want = 10 * len(runner.baker._row0)  # ten taps a slab: 80 at 4096^2
+    calls = checked_step("bake step (bake4096-sponza)", runner, want)
+    taps_counted, syncs = traced_step(runner)
+    if taps_counted != want:
+        raise SystemExit(f"chip_smoke: a traced bake step counted "
+                         f"{taps_counted} tap_kernel, want {want}")
+    out["bake"] = {"launches": len(calls), "lanes": [c[0] for c in calls],
+                   "traced_tap_kernel": taps_counted,
+                   "traced_host_syncs": syncs}
+    for k, (_, _, args) in enumerate(calls[:10]):
+        out["bake"][f"slab0_d{k // 5 + 1}_{order[k % 5]}"] = tap_row(
+            f"bake slab 0 d{k // 5 + 1} {order[k % 5]}", args, repeat=20)
+    del runner, calls
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_same_bake():
@@ -5274,6 +5496,7 @@ def main():
     engine_bake = phase_engine_bake_classes(baker, smi)
     bake_ab, bake_ab_launches = phase_engine_bake_ab(baker, smi)
     gathers = phase_gather(frame_sess, d1_hits, baker)
+    material_taps = phase_taps(smi)
     multi["bake"], m4_launches = phase_multi_device_bake(baker, smi)
     same_bake = phase_same_bake()
     engine_same = phase_engine_same_frame(smi)
@@ -5342,6 +5565,17 @@ def main():
          "ms": shade["ms"], "plain_ms": shade["plain_ms"],
          "bound_ms": shade["bound_ms"], "bound_by": shade["bound_by"],
          "library_ms": shade["library_ms"]})
+    tap = material_taps["frame"]["d1_albedo"]
+    entries.append(
+        {"name": "bilinear_tap", "route": "cuda", "source": TAPS_SOURCE,
+         "replaces": TAPS_REPLACES,
+         "launches": sum(r["bilinear_tap"] for r in runs),
+         "max_abs_err": 0.0, "ms": tap["ms"], "plain_ms": tap["plain_ms"],
+         "bound_ms": tap["bound_ms"], "bound_by": tap["bound_by"],
+         "library_ms": None})
+    if entries[-1]["launches"] == 0:
+        raise SystemExit("chip_smoke: bilinear_tap: no launch on the main "
+                         "paths")
     # each engine kernel: its launches on the main paths (those runs, E2's
     # configurations and S's routes), its E1 class on the 1080p stand-in
     # (the cut's on 1080p BoxTest, where its probe gates it on), or for the
@@ -5398,7 +5632,8 @@ def main():
                    "alpha_traversal_total": alpha_trav, "alpha_frame": alpha,
                    "same_alpha_frame": same_alpha, "render_command": render,
                    "traversal_instances": instances, "bake": bake,
-                   "gather": gathers, "same_bake": same_bake,
+                   "gather": gathers, "material_taps": material_taps,
+                   "same_bake": same_bake,
                    "raster_opaque": raster_opaque,
                    "raster_alpha": raster_alpha,
                    "raster_ray_classes": raster_rows,

@@ -65,6 +65,12 @@ one taking what it finds as opaque), gives the same hits except past chains
 of more than 8 rejections and where its t*(1+4e-6)+1e-6 restart skips a
 surface.
 
+Shading is torch ops on the lanes but for two hand kernels, each routed by
+device with a plain torch twin for the CPU: the packed shading row of each
+hit (accel/gather.py -> csrc/gather.cu) and the material-map taps
+(`_sample_packed` -> scene/textures.py::bilinear_from_meta -> csrc/taps.cu,
+one launch a tap; the twin is `bilinear_from_meta_plain`).
+
 Semantics parity (each implemented below, as in the JAX package):
   - CMJ sample points: primary = set 0, bounce k = set k; permutation =
     set * TotalNumPixels + pixelIdx (RayTrace.hlsl:85-90)
@@ -157,7 +163,10 @@ def _fetch_shade_inputs(scene, tri_id, u, v):
 
 
 def _sample_packed(scene, packed, uv, slot):
-    """Texture tap of material slot `slot` via the packed meta row."""
+    """Texture tap of material slot `slot` via the packed meta row: on the
+    card one launch of csrc/taps.cu, which reads the row's (base, w, h)
+    columns and the vertex block's uv in place; on the CPU its plain twin
+    (scene/textures.py::bilinear_from_meta)."""
     k = 3 * PACKED_SLOTS.index(slot)
     with span("shade.taps"):
         return bilinear_from_meta(scene.texels, packed[..., k],

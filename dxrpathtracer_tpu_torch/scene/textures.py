@@ -6,7 +6,10 @@ dynamic index (RayTrace.hlsl:171-221, DescriptorTables.hlsl:12-18). Here every
 texture keeps its native resolution, texels are concatenated row-major into one
 (total, 4) float32 pool, and a per-texture (base, width, height) row turns
 (texture, uv) into flat texel indices. The pool is built on the host (numpy,
-`AtlasBuilder`); the tap (`bilinear_from_meta`) is torch.
+`AtlasBuilder`). The tap, `bilinear_from_meta`, routes by device as the row
+gather does: CUDA tensors launch the hand kernel csrc/taps.cu (scene/taps.py,
+one thread a lane), CPU tensors run its plain torch twin,
+`bilinear_from_meta_plain`, which the kernel equals bit for bit.
 
 Filtering parity: every path-tracer fetch is `SampleLevel(sampler, uv, 0.0f)`
 with a wrap-addressed linear sampler, i.e. bilinear at mip 0.
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..accel.gather import row_gather
+from . import taps
 from .types import MaterialTable
 
 # Decoded 1x1 default texel values from the reference's Content/Textures/*.dds.
@@ -137,8 +141,20 @@ def sample_bilinear_wrap(texels, meta, tex_idx, uv):
 def bilinear_from_meta(texels, base, w, h, uv):
     """Bilinear wrap tap at mip 0 with (base, w, h) already in hand (the
     shading step reads them from the packed material-meta row). texels
-    (total, 4); base/w/h (...,) int32; uv (..., 2) f32 -> (..., 4) f32.
-    D3D texel-center convention: sample coord = uv * size - 0.5."""
+    (total, 4) f32; base/w/h (...,) int32; uv (..., 2) f32 -> (..., 4) f32.
+    CUDA tensors launch csrc/taps.cu, CPU tensors run
+    `bilinear_from_meta_plain`; any other device raises."""
+    if texels.device.type == "cuda":
+        return taps._launch_kernel(texels, base, w, h, uv)
+    if texels.device.type == "cpu":
+        return bilinear_from_meta_plain(texels, base, w, h, uv)
+    raise ValueError(f"no bilinear tap for device {texels.device}")
+
+
+def bilinear_from_meta_plain(texels, base, w, h, uv):
+    """The tap in plain torch, the kernel's twin: texels (total, 4);
+    base/w/h (...,) int32; uv (..., 2) f32 -> (..., 4) f32. D3D
+    texel-center convention: sample coord = uv * size - 0.5."""
     wf = w.to(torch.float32)
     hf = h.to(torch.float32)
     x = uv[..., 0] * wf - 0.5
