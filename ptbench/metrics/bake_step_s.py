@@ -2,6 +2,6 @@
 
 
 def read(ctx):
-    if ctx["mode"] != "bake" or not ctx["steps"]:
+    if ctx["step"] != "bake" or not ctx["steps"]:
         return None
     return ctx["window_s"] / ctx["steps"]

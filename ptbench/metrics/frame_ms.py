@@ -2,6 +2,6 @@
 
 
 def read(ctx):
-    if ctx["mode"] != "frame" or not ctx["steps"]:
+    if ctx["step"] != "frame" or not ctx["steps"]:
         return None
     return ctx["window_s"] / ctx["steps"] * 1e3

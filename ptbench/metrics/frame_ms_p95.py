@@ -5,6 +5,6 @@ import numpy as np
 
 
 def read(ctx):
-    if ctx["mode"] != "frame" or not ctx["step_s"]:
+    if ctx["step"] != "frame" or not ctx["step_s"]:
         return None
     return float(np.percentile(np.asarray(ctx["step_s"]) * 1e3, 95))

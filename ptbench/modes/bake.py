@@ -18,6 +18,7 @@ import torch
 from ..check import off_pct
 from ..trace import sync
 
+STEP = "bake"  # a step is one bake sample of every covered texel
 WARM_STEPS = 2
 
 

@@ -18,6 +18,7 @@ import torch
 from ..check import off_pct
 from ..trace import sync
 
+STEP = "frame"  # a step is one displayed frame
 WARM_FRAMES = 3
 
 

@@ -7,7 +7,9 @@ from the root of a checkout. A cell of BENCHMARK.json names a configuration
 traffic mix (ptbench/workloads/<traffic>.json: the scene generator of
 ptbench/scenes/, the camera and the sun). The mode's runner
 (ptbench/modes/<mode>.py) builds the port's session, warms the cell's own
-shapes and steps it; this file times the window, reads each metric with
+shapes and steps it; the mode's STEP says what one step is ("frame": one
+displayed frame; "bake": one bake sample), and the readers key on it, not
+on the mode's name. This file times the window, reads each metric with
 its reader (ptbench/metrics/<name>.py; the per-layer ones in a traced
 run), checks the output against the plain reference (ptbench/ref/) at
 pixels or texels drawn from the seed, within the cell's limits
@@ -83,7 +85,13 @@ def load_scene(traffic: dict):
 
 
 def load_mode(name: str):
-    return _load_module("modes", name)
+    """The mode's module; refused by name where it declares no STEP."""
+    mod = _load_module("modes", name)
+    if not isinstance(getattr(mod, "STEP", None), str):
+        raise SystemExit(f"ptbench: mode {name} (modes/{name}.py) declares "
+                         f"no STEP, the kind of its step (\"frame\", "
+                         f"\"bake\", ...) that the readers key on")
+    return mod
 
 
 def load_metric(name: str):
@@ -140,11 +148,11 @@ def timed_window(runner, seconds: float, traced_steps: int, recorder):
     Returns (window seconds, each untraced step's seconds, the trace or
     None). With a gather `recorder` (a traced run), once a third of the
     window has passed, `traced_steps` steps are profiled on the card alone
-    and one more step on host and card (its spans); their time is in the
-    window but not among the step times. The trace is (the card's profile,
-    its stretch's host seconds, the spans' profile)."""
-    import torch
-
+    and one more step on host and card with the program's tracing on
+    (`spans.program_step`); their time is in the window but not among the
+    step times. The trace is (the card's profile, its stretch's host
+    seconds, the program step's (profile, records, host seconds))."""
+    from . import spans
     from . import trace as tr
     times, traced = [], None
     start = time.perf_counter()
@@ -159,12 +167,7 @@ def timed_window(runner, seconds: float, traced_steps: int, recorder):
                 tr.sync(runner.device)
                 stretch_s = time.perf_counter() - t0
             recorder.on = False
-            with tr.profiled(spans=True) as span_prof:
-                with torch.profiler.record_function(tr.SPAN_PREFIX
-                                                    + tr.STRETCH):
-                    runner.step()
-                    tr.sync(runner.device)
-            traced = (prof, stretch_s, span_prof)
+            traced = (prof, stretch_s, spans.program_step(runner))
             continue
         runner.step()
         now = time.perf_counter()
@@ -208,13 +211,11 @@ def run(args, bench, cell, config, traffic, limits, device):
     check's lines)."""
     import torch
 
+    from . import spans
     from . import trace as tr
     on_card = device.startswith("cuda")
     mode = load_mode(config["mode"])
-    recorder = None
-    if args.trace:
-        tr.install_spans()
-        recorder = tr.GatherRecorder()
+    recorder = tr.GatherRecorder() if args.trace else None
     t_scene = time.perf_counter()
     desc = load_scene(traffic)
     first = args.seed % FIRST_SAMPLES
@@ -238,8 +239,8 @@ def run(args, bench, cell, config, traffic, limits, device):
         f"({len(times)} timed), {runner.rays_per_step()} rays each; "
         f"hand-kernel launches {json.dumps(counters)}")
 
-    ctx = {"mode": config["mode"], "setup_s": setup_s, "window_s": window_s,
-           "step_s": times, "steps": runner.steps,
+    ctx = {"mode": config["mode"], "step": mode.STEP, "setup_s": setup_s,
+           "window_s": window_s, "step_s": times, "steps": runner.steps,
            "setup": runner.setup_readings(), "traced_steps": traced_steps,
            "hbm_bytes_per_s": HBM_BYTES_PER_S}
     device_info = {"platform": "gpu" if on_card else "cpu",
@@ -249,20 +250,20 @@ def run(args, bench, cell, config, traffic, limits, device):
     breakdown = None
     if traced is not None:
         ctx["profile"] = tr.device_summary(traced[0], traced[1])
-        gaps = tr.idle_gaps(traced[2])
+        ctx["program_spans"], gaps = spans.tabulate(*traced[2][:2])
         del traced
         ctx["gather_bytes"] = recorder.bytes_needed()
         recorder.calls.clear()
         for name, count, secs in ctx["profile"]["ops_by_kernel"][:30]:
             log(f"ptbench: traced {name[:90]}: {count} launches, "
                 f"{secs * 1e3:.3f} ms")
-        log(f"ptbench: idle gaps of one step by span (profiled host): "
-            f"{json.dumps(gaps)}")
+        for line in spans.lines(ctx["program_spans"], gaps):
+            log(f"ptbench: program step: {line}")
         device_info["busy_s"] = ctx["profile"]["busy_s"]
         device_info["window_s"] = ctx["profile"]["window_s"]
         breakdown = {"device_ops": [[n, s] for n, s in
                                     ctx["profile"]["top_ops"]],
-                     "idle_gaps": [[n, s] for n, s in gaps]}
+                     "idle_gaps": [[n, s] for n, s in gaps[:10]]}
     kind = "per_layer" if args.trace else "end_to_end"
     metrics = read_metrics(cell_metrics(bench, cell["name"], kind), ctx)
 

@@ -4,16 +4,20 @@ dxrpathtracer_tpu_torch/app/profiler.py marks each stage of the frame and
 the bake with a span (`record_function("dxrpt." + name)` while its
 `tracing()` is on) and counts the host syncs that torch reports under the
 innermost open span. `program_step` takes one step of a mode's runner with
-that tracing on, profiled on host and card. `table` joins the profile's
+that tracing on, profiled on host and card; every `--trace 1` run of
+ptbench/run.py takes it after the card-only stretch, and `tabulate` reduces
+it once the window has closed. `table` joins the profile's
 span events with the tracer's records: per span path, its calls, host ms,
 host ms outside its child spans, the device ms and kernels of the work
 launched inside it (each device operation by the host time of the launch
 call the profiler correlates it with, so it counts under the span whose
 host code launched it, whenever it ran; torch's ops and the hand kernels'
-ctypes launches alike) and the host syncs. `idle_gaps` names each idle stretch of the card's timeline
-by the innermost program span the host was in when it began. The readers
-of `host_syncs.*` and `taps_ms.*` (`syncs_per_step`, `device_ms_per_step`)
-read the table from ctx["program_spans"].
+ctypes launches alike) and the host syncs. `idle_gaps` names each idle
+stretch of the card's timeline by the innermost program span the host was
+in when it began: the breakdown's `idle_gaps`. The readers of
+`host_syncs.*` and `taps_ms.*` (`syncs_per_step`, `device_ms_per_step`)
+read the table from ctx["program_spans"], in a run whose mode's STEP is
+theirs (ctx["step"]).
 
     python3 -m ptbench.spans --workload <cell> --seed <n> [--steps 10]
         [--out FILE]
@@ -32,8 +36,6 @@ import sys
 import time
 from pathlib import Path
 
-from . import run as R
-from .trace import SPAN_PREFIX as HARNESS_PREFIX
 from .trace import _union, is_kernel, profiled
 
 PREFIX = "dxrpt."  # the program's spans (app/profiler.py's SPAN_PREFIX)
@@ -77,7 +79,7 @@ class Timeline:
         for e in prof.events():
             t = e.time_range
             if e.device_type == cuda:
-                if not (e.name.startswith((PREFIX, HARNESS_PREFIX))
+                if not (e.name.startswith(PREFIX)
                         or getattr(e, "is_user_annotation", False)):
                     self.ops.append((e.name, t.start / 1e6, t.end / 1e6,
                                      e.id))
@@ -162,15 +164,25 @@ def idle_gaps(timeline: Timeline, top: int = 12) -> list:
 
 def program_step(runner):
     """One step of `runner` with the program's tracing on, profiled on host
-    and card: (table, idle gaps, the step's host seconds)."""
-    from dxrpathtracer_tpu_torch.app.profiler import tracing
+    and card: (the profile, the tracing's records, the step's host
+    seconds). Raises where the tracing is still on after it, so the steps
+    that follow run untraced."""
+    from dxrpathtracer_tpu_torch.app.profiler import NO_SPAN, span, tracing
     with profiled(spans=True) as prof:
         with tracing() as records:
             t0 = time.perf_counter()
             runner.step()
             host_s = time.perf_counter() - t0
+    if span("frame") is not NO_SPAN:
+        raise RuntimeError("ptbench: the program's tracing is still on "
+                           "after its traced step")
+    return prof, records, host_s
+
+
+def tabulate(prof, records):
+    """(table, idle gaps) of a program step's profile and records."""
     timeline = Timeline(prof)
-    return table(timeline, records), idle_gaps(timeline), host_s
+    return table(timeline, records), idle_gaps(timeline)
 
 
 def _under(rows: dict, stage: str):
@@ -180,25 +192,27 @@ def _under(rows: dict, stage: str):
             if p == stage or p.startswith(stage + "/")], calls
 
 
-def syncs_per_step(mode: str, stage: str):
+def syncs_per_step(step: str, stage: str):
     """Reader: the host syncs counted under the span `stage` per call of
-    it in the program-traced step; None in another mode or untraced."""
+    it in the program-traced step; None where the mode's step is of
+    another kind, or untraced."""
     def read(ctx):
         rows = ctx.get("program_spans")
-        if ctx["mode"] != mode or not rows:
+        if ctx["step"] != step or not rows:
             return None
         under, calls = _under(rows, stage)
         return sum(r["syncs"] for r in under) / calls if calls else None
     return read
 
 
-def device_ms_per_step(mode: str, stage: str, leaf: str):
+def device_ms_per_step(step: str, stage: str, leaf: str):
     """Reader: the device ms of the kernels launched inside the spans
-    named `leaf` below `stage`, per call of `stage`; None in another mode,
-    untraced, or where no such span ran on the card."""
+    named `leaf` below `stage`, per call of `stage`; None where the mode's
+    step is of another kind, untraced, or where no such span ran on the
+    card."""
     def read(ctx):
         rows = ctx.get("program_spans")
-        if ctx["mode"] != mode or not rows:
+        if ctx["step"] != step or not rows:
             return None
         _, calls = _under(rows, stage)
         ms = sum(r["device_ms"] for p, r in rows.items()
@@ -230,6 +244,7 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
+    from . import run as R
     bench = R._load_json(Path.cwd() / "BENCHMARK.json")
     cell = R.find_cell(bench, args.workload)
     config = R.load_config(cell["config"])
@@ -238,9 +253,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         R.log("ptbench.spans: needs a CUDA device")
         return 3
-    runner = R.load_mode(config["mode"]).Runner(
-        config, traffic, R.load_scene(traffic), args.seed % R.FIRST_SAMPLES,
-        "cuda:0")
+    mode = R.load_mode(config["mode"])
+    runner = mode.Runner(config, traffic, R.load_scene(traffic),
+                         args.seed % R.FIRST_SAMPLES, "cuda:0")
     runner.setup()
     times = []
     for _ in range(args.steps):
@@ -251,8 +266,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         runner.step()
         profiled_s = time.perf_counter() - t0
-    rows, gaps, traced_s = program_step(runner)
-    ctx = {"mode": config["mode"], "program_spans": rows}
+    prof, records, traced_s = program_step(runner)
+    rows, gaps = tabulate(prof, records)
+    ctx = {"mode": config["mode"], "step": mode.STEP, "program_spans": rows}
     readings = {m: R.load_metric(m).read(ctx) for m in METRICS}
     result = {"workload": cell["name"], "card": R.card_line(),
               "seed": args.seed,

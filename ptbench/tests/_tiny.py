@@ -19,7 +19,7 @@ def cell_parts(name: str, width=32, height=16, resolution=64, count=128,
     b = bench()
     cell = R.find_cell(b, name)
     config = R.load_config(cell["config"])
-    if config["mode"] == "frame":
+    if R.load_mode(config["mode"]).STEP == "frame":
         config.update(width=width, height=height, traced_steps=1)
     else:
         config.update(resolution=resolution, traced_steps=1)

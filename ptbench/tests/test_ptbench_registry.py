@@ -50,10 +50,12 @@ def test_scenes_build_by_name(traffic, tris, materials, opacity):
     assert len(sizes) == 6 + 4 * materials + opacity
 
 
-def test_new_files_are_found_by_name(tmp_path, monkeypatch):
-    """A configuration, traffic mix, scene, mode, metric and limits added as
-    files, with a cell and a metric added to BENCHMARK.json's lists, are
-    picked up by name, and the new cell runs end to end."""
+def _new_files(tmp_path, monkeypatch):
+    """A copy of the harness's data files under tmp_path with a new
+    configuration (`pt64`, mode `frame2`: frame.py under another name),
+    traffic mix, scene, metric (`frames_done`) and limits for a cell
+    `pt64-boxes`; ptbench's ROOT points at it. Returns (BENCHMARK.json
+    with the cell and `frames_done` added, the cell)."""
     root = tmp_path / "ptbench"
     for kind in ("configs", "workloads", "scenes", "modes", "metrics",
                  "limits"):
@@ -91,6 +93,24 @@ def test_new_files_are_found_by_name(tmp_path, monkeypatch):
                             "better": "higher", "bound": 0.01,
                             "source": "host_clock",
                             "workloads": ["pt64-boxes"]})
+    return b, cell
+
+
+def _run_new_cell(b, cell, trace=0):
+    import argparse
+    args = argparse.Namespace(workload="pt64-boxes", seed=2**31 + 99,
+                              seconds=0.3, trace=trace)
+    result, _ = R.run(args, b, cell, R.load_config("pt64"),
+                      R.load_traffic("boxes"), R.load_limits("pt64-boxes"),
+                      "cpu")
+    return result
+
+
+def test_new_files_are_found_by_name(tmp_path, monkeypatch):
+    """A configuration, traffic mix, scene, mode, metric and limits added as
+    files, with a cell and a metric added to BENCHMARK.json's lists, are
+    picked up by name, and the new cell runs end to end."""
+    b, cell = _new_files(tmp_path, monkeypatch)
     config = R.load_config("pt64")
     traffic = R.load_traffic("boxes")
     assert R.load_scene(traffic).meshes
@@ -99,13 +119,55 @@ def test_new_files_are_found_by_name(tmp_path, monkeypatch):
     assert "frames_done" in names and "setup_s" in names
     assert "frame_ms" not in names  # listed for other cells only
 
-    import argparse
-    args = argparse.Namespace(workload="pt64-boxes", seed=2**31 + 99,
-                              seconds=0.3, trace=0)
-    result, _ = R.run(args, b, cell, config, traffic,
-                      R.load_limits("pt64-boxes"), "cpu")
+    result = _run_new_cell(b, cell)
     assert result["correct"] is True
     assert result["metrics"]["frames_done"]["value"] == result["attempted"]
+
+
+def test_a_renamed_frame_mode_reports_the_frame_metrics(tmp_path,
+                                                        monkeypatch):
+    """A mode under another name whose STEP is "frame" reports frame_ms and
+    frame_ms_p95, and host_syncs.frame traced, once its cell is listed in
+    their workloads: the readers key on the step, not on the mode's
+    name."""
+    b, cell = _new_files(tmp_path, monkeypatch)
+    assert R.load_config("pt64")["mode"] == "frame2"
+    assert R.load_mode("frame2").STEP == "frame"
+    for m in b["end_to_end"] + b["per_layer"]:
+        if m["name"] in ("frame_ms", "frame_ms_p95", "host_syncs.frame"):
+            m["workloads"].append("pt64-boxes")
+    result = _run_new_cell(b, cell)
+    assert result["correct"] is True
+    got = result["metrics"]
+    assert {"frame_ms", "frame_ms_p95", "frames_done", "setup_s"} == set(got)
+    assert got["frame_ms"]["value"] > 0 and got["frame_ms"]["unit"] == "ms"
+    assert got["frame_ms_p95"]["value"] > 0
+    traced = _run_new_cell(b, cell, trace=1)
+    assert traced["correct"] is True
+    # the CPU counts no host syncs
+    assert traced["metrics"] == {"host_syncs.frame": {"value": 0.0,
+                                                      "unit": "syncs/frame"}}
+
+
+def test_a_mode_without_step_is_refused_by_name(tmp_path, monkeypatch):
+    root = tmp_path / "ptbench"
+    (root / "modes").mkdir(parents=True)
+    text = (R.ROOT / "modes" / "frame.py").read_text()
+    (root / "modes" / "nostep.py").write_text(
+        "\n".join(line for line in text.splitlines()
+                  if not line.startswith("STEP =")) + "\n")
+    monkeypatch.setattr(R, "ROOT", root)
+    with pytest.raises(SystemExit, match=r"mode nostep \(modes/nostep.py\) "
+                       r"declares no STEP"):
+        R.load_mode("nostep")
+
+
+def test_every_mode_declares_its_step():
+    modes = [p.stem for p in (R.ROOT / "modes").glob("*.py")
+             if not p.stem.startswith("_")]
+    steps = {m: R.load_mode(m).STEP for m in modes}
+    assert all(steps.values()), steps
+    assert steps["frame"] == "frame" and steps["bake"] == "bake"
 
 
 WIDTH_KEYS = re.compile(r"(_dim|_rank)$|hidden|intermediate|latent|state|"

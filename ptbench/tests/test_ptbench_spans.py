@@ -1,8 +1,9 @@
 """The program-traced step (ptbench/spans.py) and the readers of
-host_syncs.* and taps_ms.*: None untraced or in the other mode, the right
-sums on a synthetic table; the table and idle gaps of a tiny cell's step on
-the CPU; on the card, one `nonzero()` inside a span is one host sync
-there."""
+host_syncs.* and taps_ms.*: None untraced or where the step is of the
+other kind, whatever the mode's name, the right sums on a synthetic table;
+the table and idle gaps of a tiny cell's step on the CPU, and a tiny
+traced run that reads them; on the card, one `nonzero()` inside a span is
+one host sync there."""
 
 import pytest
 import torch
@@ -10,7 +11,7 @@ import torch
 from ptbench import run as R
 from ptbench import spans
 
-from ._tiny import cell_parts
+from ._tiny import cell_parts, run_tiny
 
 
 def _row(calls=1, device_ms=0.0, syncs=0):
@@ -36,26 +37,30 @@ BAKE_ROWS = {
 }
 
 
-@pytest.mark.parametrize("name,mode,rows,want", [
+@pytest.mark.parametrize("name,step,rows,want", [
     ("host_syncs.frame", "frame", FRAME_ROWS, 9.0),
     ("taps_ms.frame", "frame", FRAME_ROWS, 42.5),
     ("host_syncs.bake", "bake", BAKE_ROWS, 16.0),
     ("taps_ms.bake", "bake", BAKE_ROWS, 400.0)])
-def test_reader_sums_its_stage(name, mode, rows, want):
+def test_reader_sums_its_stage(name, step, rows, want):
     read = R.load_metric(name).read
-    assert read({"mode": mode, "program_spans": rows}) == pytest.approx(want)
-    other = "bake" if mode == "frame" else "frame"
-    assert read({"mode": other, "program_spans": rows}) is None
-    assert read({"mode": mode}) is None  # untraced: no program step
-    assert read({"mode": mode, "program_spans": {}}) is None
+    assert read({"mode": step, "step": step,
+                 "program_spans": rows}) == pytest.approx(want)
+    # a mode of another name whose step is of this kind reads the same
+    assert read({"mode": "turntable", "step": step,
+                 "program_spans": rows}) == pytest.approx(want)
+    other = "bake" if step == "frame" else "frame"
+    assert read({"mode": step, "step": other, "program_spans": rows}) is None
+    assert read({"mode": step, "step": step}) is None  # untraced
+    assert read({"mode": step, "step": step, "program_spans": {}}) is None
 
 
 def test_taps_reader_needs_a_taps_span():
     read = R.load_metric("taps_ms.frame").read
     rows = {"frame": _row(), "frame/paths": _row(device_ms=3.0)}
-    assert read({"mode": "frame", "program_spans": rows}) is None
+    assert read({"step": "frame", "program_spans": rows}) is None
     assert R.load_metric("host_syncs.frame").read(
-        {"mode": "frame", "program_spans": rows}) == 0.0
+        {"step": "frame", "program_spans": rows}) == 0.0
 
 
 @pytest.mark.parametrize("cell,stage", [("pt1080-sponza", "frame"),
@@ -68,7 +73,10 @@ def test_program_step_on_a_tiny_cell(cell, stage):
     runner = R.load_mode(config["mode"]).Runner(
         config, traffic, R.load_scene(traffic), 5, "cpu")
     runner.setup()
-    rows, gaps, host_s = spans.program_step(runner)
+    steps = runner.steps
+    prof, records, host_s = spans.program_step(runner)
+    rows, gaps = spans.tabulate(prof, records)
+    assert runner.steps == steps + 1  # one step of the runner's own
     assert host_s > 0 and rows[stage]["calls"] == 1
     taps = [r for p, r in rows.items() if p.endswith("/shade.taps")]
     assert sum(r["calls"] for r in taps) == 10  # 5 maps, 2 vertices, 1 slab
@@ -80,6 +88,79 @@ def test_program_step_on_a_tiny_cell(cell, stage):
     assert gaps == []  # no device operations on the CPU: no timeline
     text = spans.lines(rows, gaps)
     assert len(text) == len(rows) + 2
+
+
+@pytest.mark.parametrize("cell,step,seconds", [
+    ("pt1080-sponza", "frame", 4.0), ("bake4096-sponza", "bake", 8.0)])
+def test_a_traced_run_reads_the_program_step(cell, step, seconds,
+                                              monkeypatch):
+    """A tiny `--trace 1` run takes one program-traced step, puts its table
+    in ctx["program_spans"], reads its cell's two new metrics from it, and
+    leaves the program's tracing off; an untraced run has no table."""
+    from dxrpathtracer_tpu_torch.app import profiler
+
+    seen = []
+    read_metrics = R.read_metrics
+
+    def spy(entries, ctx):
+        seen.append(([m["name"] for m in entries], ctx))
+        return read_metrics(entries, ctx)
+
+    monkeypatch.setattr(R, "read_metrics", spy)
+    called = []
+    load_metric = R.load_metric
+
+    def load(name):
+        mod = load_metric(name)
+        called.append(name)
+        return mod
+
+    monkeypatch.setattr(R, "load_metric", load)
+    result, _ = run_tiny(cell, trace=1, seconds=seconds)
+    assert result["correct"] is True
+    (names, ctx), = seen
+    assert ctx["step"] == step and ctx["mode"] == step
+    rows = ctx["program_spans"]
+    assert rows[step]["calls"] == 1
+    assert any(p.endswith("/shade.taps") for p in rows)
+    new = {f"host_syncs.{step}", f"taps_ms.{step}"}
+    assert new <= set(names) and new <= set(called)
+    # the CPU counts no host syncs and runs nothing on a card
+    assert result["metrics"][f"host_syncs.{step}"]["value"] == 0.0
+    assert f"taps_ms.{step}" not in result["metrics"]
+    assert result["breakdown"]["idle_gaps"] == []
+    assert profiler.span("frame") is profiler.NO_SPAN  # tracing off again
+
+    seen.clear()
+    run_tiny(cell, trace=0)
+    (_, ctx), = seen
+    assert "program_spans" not in ctx and ctx["step"] == step
+
+
+def test_program_step_refuses_tracing_left_on(monkeypatch):
+    """Where the program's tracing were still on after the traced step,
+    the steps after it would run traced: the harness stops."""
+    import contextlib
+
+    from dxrpathtracer_tpu_torch.app import profiler
+
+    @contextlib.contextmanager
+    def leaky():
+        profiler._trace = profiler._Trace()
+        yield profiler._trace.records
+
+    class Runner:
+        device = "cpu"
+
+        def step(self):
+            pass
+
+    monkeypatch.setattr(profiler, "tracing", leaky)
+    try:
+        with pytest.raises(RuntimeError, match="tracing is still on"):
+            spans.program_step(Runner())
+    finally:
+        profiler._trace = None
 
 
 @pytest.mark.card

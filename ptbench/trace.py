@@ -1,27 +1,20 @@
-"""Spans, counters and the device trace of a `--trace 1` run.
+"""Counters and the device trace of a `--trace 1` run.
 
-Spans are ptbench's own: `install_spans` wraps the calls into each layer of
-the port (the session's frame and update, the Baker's step, the
-integrator's raygen, trace, shade and vertex update, and each traversal
-entry the integrator calls) in `torch.profiler.record_function`, so the
-profiler records them as host intervals. A wrapper around the gather
-kernel's launch records each call's ids and table width, whose bytes are
-counted after the traced stretch. Counters are the port's own
-KERNEL_LAUNCHES dicts and ints, read before and after the window.
+The spans are the program's own (dxrpathtracer_tpu_torch/app/profiler.py,
+read by ptbench/spans.py from one program-traced step); this file reads
+the card-only stretch before it. A wrapper around the gather kernel's
+launch records each call's ids and table width, whose bytes are counted
+after the traced stretch. Counters are the port's own KERNEL_LAUNCHES
+dicts and ints, read before and after the window.
 
-`reduce` turns a profiler's events into what the per-layer readers read:
-every device operation with its interval, the union of those intervals
-(the device's busy time; the idle arithmetic of
-dxrpathtracer_tpu_torch/tools/profile_bake.py:44-71, with the busy time
-taken as the union of intervals rather than a sum, so overlapping streams
-are not counted twice), and the idle gaps, each named by the innermost
-ptbench span the host was in when the gap began.
+`device_summary` turns a profile of the card alone into what the
+per-layer readers read: every device operation with its interval, and the
+union of those intervals (the device's busy time; a union rather than a
+sum, so overlapping streams are not counted twice).
 """
 
-import bisect
-import re
 import contextlib
-import functools
+import re
 
 import torch
 
@@ -32,7 +25,6 @@ TRAVERSAL_KERNELS = ("warp_kernel", "thread_kernel", "packet_kernel",
                      "cut_kernel")
 HAND_KERNELS = TRAVERSAL_KERNELS + ("gather_rows", "revalidate_kernel",
                                     "raster_kernel")
-SPAN_PREFIX = "ptbench."
 
 
 def sync(device):
@@ -62,38 +54,6 @@ def device_s(ctx, pick) -> float:
                if is_kernel(n) and pick(kernel_base_name(n)))
 
 
-# (module, attribute, span) of the wrapped calls. Traversal entries are
-# wrapped where the integrator and the bake look them up.
-SPANS = (
-    ("dxrpathtracer_tpu_torch.app.session", "RenderSession.render_frame",
-     "frame"),
-    ("dxrpathtracer_tpu_torch.app.session", "RenderSession.update",
-     "frame.update"),
-    ("dxrpathtracer_tpu_torch.app.session", "RenderSession.update_sun_grid",
-     "frame.sun_grid"),
-    ("dxrpathtracer_tpu_torch.bake.baker", "Baker.bake_step", "bake"),
-    ("dxrpathtracer_tpu_torch.bake.baker", "bake_sample", "bake.slab"),
-    ("dxrpathtracer_tpu_torch.bake.baker", "trace_paths", "paths"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "raygen", "raygen"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "trace_paths", "paths"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "_shade_vertex", "shade"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "_apply_vertex",
-     "vertex_update"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "closest_hit",
-     "traverse.closest"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "any_hit", "traverse.any"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "packet_closest_hit",
-     "traverse.packet_closest"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "packet_any_hit",
-     "traverse.packet_any"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "sun_any_hit",
-     "traverse.sun_grid"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "screened_any",
-     "traverse.screened"),
-    ("dxrpathtracer_tpu_torch.render.integrator", "cut_clear",
-     "traverse.cut"),
-)
-
 # (module, counter) of the port's launch counters
 COUNTERS = (
     ("dxrpathtracer_tpu_torch.accel.traverse", "KERNEL_LAUNCHES"),
@@ -105,26 +65,6 @@ COUNTERS = (
     ("dxrpathtracer_tpu_torch.render.swraster", "KERNEL_LAUNCHES"),
     ("dxrpathtracer_tpu_torch.accel.gather", "KERNEL_LAUNCHES"),
 )
-
-
-def _span(name, fn):
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(SPAN_PREFIX + name):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
-def install_spans():
-    """Wrap the calls of SPANS in record_function ranges."""
-    import importlib
-    for mod_name, attr, span in SPANS:
-        mod = importlib.import_module(mod_name)
-        owner, leaf = mod, attr
-        if "." in attr:
-            cls, leaf = attr.split(".")
-            owner = getattr(mod, cls)
-        setattr(owner, leaf, _span(span, getattr(owner, leaf)))
 
 
 class GatherRecorder:
@@ -177,7 +117,7 @@ def counter_deltas(before: dict, after: dict) -> dict:
 @contextlib.contextmanager
 def profiled(spans: bool):
     """A torch profiler of the card's activity; with `spans`, of the host's
-    too (the ptbench spans among it), which slows the host."""
+    too (the program's spans among it), which slows the host."""
     acts = []
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -199,7 +139,6 @@ def _union(intervals):
     return sum(e - s for s, e in merged), merged
 
 
-STRETCH = "stretch"
 NAME_CHARS = 120  # of a device operation's name in the breakdown
 
 
@@ -215,22 +154,14 @@ def _by_kernel(ops) -> list:
                   key=lambda r: -r[2])
 
 
-def _events(prof):
-    """(device operations [(name, start s, end s)], host spans [(start s,
-    end s, name)]) of a profile; device-side copies of host annotations
-    are not operations."""
+def _device_ops(prof):
+    """[(name, start s, end s)] of a profile's device operations; the
+    card's copies of host annotations are not operations."""
     dev_type = torch.autograd.DeviceType.CUDA
-    ops, spans = [], []
-    for e in prof.events():
-        tr = e.time_range
-        annotation = (e.name.startswith(SPAN_PREFIX)
-                      or getattr(e, "is_user_annotation", False))
-        if e.device_type == dev_type and not annotation:
-            ops.append((e.name, tr.start / 1e6, tr.end / 1e6))
-        elif e.device_type != dev_type and e.name.startswith(SPAN_PREFIX):
-            spans.append((tr.start / 1e6, tr.end / 1e6,
-                          e.name[len(SPAN_PREFIX):]))
-    return ops, spans
+    return [(e.name, e.time_range.start / 1e6, e.time_range.end / 1e6)
+            for e in prof.events()
+            if e.device_type == dev_type
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def device_summary(prof, window_s: float, top: int = 10) -> dict:
@@ -240,7 +171,7 @@ def device_summary(prof, window_s: float, top: int = 10) -> dict:
     since each step ends in one): {window_s, busy_s (the union of the
     operations' intervals), device_ops [(name, start, end)], top_ops
     [(name, seconds)], ops_by_kernel}."""
-    ops, _ = _events(prof)
+    ops = _device_ops(prof)
     busy, _ = _union([(s, e) for _, s, e in ops])
     by_op = {}
     for n, s, e in ops:
@@ -249,37 +180,3 @@ def device_summary(prof, window_s: float, top: int = 10) -> dict:
     return {"window_s": window_s, "busy_s": busy, "device_ops": ops,
             "top_ops": [(n[:NAME_CHARS], t) for n, t in top_ops[:top]],
             "ops_by_kernel": _by_kernel(ops)}
-
-
-def idle_gaps(prof, top: int = 10) -> list:
-    """[(span, seconds)] of a profile of host and card over its STRETCH
-    span: the card's idle time, each gap named by the innermost ptbench
-    span the host was in when it began ("host" outside them), the most
-    first. The host's own profiling lengthens the gaps."""
-    ops, spans = _events(prof)
-    stretch = [(s, e) for s, e, n in spans if n == STRETCH]
-    if len(stretch) != 1:
-        raise RuntimeError(f"trace: {len(stretch)} stretch spans, want 1")
-    w0, w1 = stretch[0]
-    spans = sorted(sp for sp in spans if sp[2] != STRETCH)
-    ops = [(max(s, w0), min(e, w1)) for _, s, e in ops if e > w0 and s < w1]
-    _, merged = _union(ops)
-    edges = [w0] + [x for iv in merged for x in iv] + [w1]
-    gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
-            if edges[i + 1] > edges[i]]
-    starts = [s for s, _, _ in spans]
-
-    def span_at(t):
-        # the innermost (latest-starting) span open at t
-        i = bisect.bisect_right(starts, t)
-        for j in range(i - 1, max(-1, i - 200), -1):
-            s, e, name = spans[j]
-            if s <= t < e:
-                return name
-        return "host"
-
-    by_span = {}
-    for s, e in gaps:
-        name = span_at(s)
-        by_span[name] = by_span.get(name, 0.0) + (e - s)
-    return sorted(by_span.items(), key=lambda kv: -kv[1])[:top]
