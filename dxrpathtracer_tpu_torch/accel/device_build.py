@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..app.profiler import count
 from ..core.math3 import div
 from .bvh import LEAF_SIZE, RECORD, WIDTH, FlatBVH, lbvh_topology
 
@@ -189,7 +190,9 @@ def build_table_device(v0, v1, v2, plan: LBVHPlan) -> torch.Tensor:
 
 def build_bvh_device(v0, v1, v2, plan: LBVHPlan | None = None) -> FlatBVH:
     """The W8 FlatBVH of the device build, its table on the vertices'
-    device; the static fields come from the plan."""
+    device; the static fields come from the plan. Traced, each build counts
+    one `lbvh_build` under the innermost open span."""
+    count("lbvh_build")
     if plan is None:
         plan = lbvh_plan(int(v0.shape[0]))
     return FlatBVH(table=build_table_device(v0, v1, v2, plan),

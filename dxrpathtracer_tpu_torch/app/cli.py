@@ -146,15 +146,14 @@ def cmd_render(args):
 
 def cmd_animate(args):
     """Turntable animation with the W8 table rebuilt on the device every
-    frame (the JAX package's `animate`): each frame rotates the whole scene
-    on the device (scene/animate.py), builds its morton table there
-    (accel/device_build.py, one plan for the triangle count) and renders
-    `--spp` samples with every traversal class on that table; geometry
-    never goes back to the host. Writes OUTPUT/frame_NNN.png, and with
-    `--gif` a GIF of them (PIL)."""
-    from ..accel.device_build import lbvh_plan
+    frame (the JAX package's `animate`): each frame is `Turntable.frame`
+    (scene/animate.py), which rotates the whole scene on the device, builds
+    its morton table there (accel/device_build.py, one plan for the
+    triangle count) and renders `--spp` samples with every traversal class
+    on that table; geometry never goes back to the host. Writes
+    OUTPUT/frame_NNN.png, and with `--gif` a GIF of them (PIL)."""
     from ..render.film import write_image
-    from ..scene.animate import turntable_center, turntable_geometry
+    from ..scene.animate import Turntable
     from .session import RenderSession
 
     if args.gif:
@@ -169,22 +168,16 @@ def cmd_animate(args):
     sess = RenderSession(settings=settings, width=args.width,
                          height=args.height, device=args.device,
                          asset_root=args.asset_root)
-    plan = lbvh_plan(sess.scene.num_triangles)
-    center = turntable_center(sess.scene_host.positions.numpy())
-    base = sess.scene
+    turn = Turntable(sess, args.frames)
     os.makedirs(args.output, exist_ok=True)
     print(f"# scene={sess.preset.name} tris={sess.scene.num_triangles} "
-          f"rows={plan.num_rows} frames={args.frames} spp={args.spp} "
+          f"rows={turn.plan.num_rows} frames={args.frames} spp={args.spp} "
           f"init={time.time() - t0:.1f}s device={sess.device}",
           file=sys.stderr)
     paths = []
     for f in range(args.frames):
         t1 = time.time()
-        scene, bvh = turntable_geometry(
-            base, np.float32(2.0 * np.pi * f / args.frames), center, plan)
-        sess.use_geometry(scene, bvh)
-        sess.render_to_completion(args.spp)
-        disp = sess.display_image().cpu().numpy()
+        disp = turn.frame(f, args.spp).cpu().numpy()
         path = os.path.join(args.output, f"frame_{f:03d}.png")
         write_image(path, disp)
         paths.append(path)

@@ -6,8 +6,11 @@ acceleration structures on the GPU (DXRPathTracer.cpp:2331-2488), which is
 what makes animated geometry possible on that stack; here every frame
 rotates the scene's tensors (`rotate_scene_y`) and builds the morton W8
 table from them on the same device (accel/device_build.py), so geometry
-never goes back to the host. Exposed to users as `python -m
-dxrpathtracer_tpu_torch animate`.
+never goes back to the host. `Turntable.frame` is one displayed frame of a
+turn on a RenderSession, the one entry that users reach through `python -m
+dxrpathtracer_tpu_torch animate`. Traced (app/profiler.py), it is the span
+`turntable`, its stages `turntable.rotate`, `.build`, `.geometry`,
+`.samples` and `.display`.
 
 Bits: the rotation's cos and sin are glibc's float32 cosf/sinf of the
 float32 angle, called through ctypes: XLA:CPU's float32 cos/sin are those
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 
 from ..accel.bvh import FlatBVH
-from ..accel.device_build import LBVHPlan, build_bvh_device
+from ..accel.device_build import LBVHPlan, build_bvh_device, lbvh_plan
+from ..app.profiler import span
 from .types import TRI_SHADE_VTX, Scene
 
 
@@ -113,5 +117,42 @@ def turntable_geometry(scene: Scene, theta, center,
     """One animation frame: the scene rotated by `theta` and its W8 table
     built on the device (no alpha flags: a walk with the alpha test then
     tests every candidate's material)."""
-    rotated = rotate_scene_y(scene, theta, center)
-    return rotated, build_bvh_device(*triangle_vertices(rotated), plan)
+    with span("turntable.rotate"):
+        rotated = rotate_scene_y(scene, theta, center)
+    with span("turntable.build"):
+        bvh = build_bvh_device(*triangle_vertices(rotated), plan)
+    return rotated, bvh
+
+
+class Turntable:
+    """A turn of `frames_per_turn` frames of a RenderSession's scene about
+    the vertical axis through its x/z centre (`turntable_center`), the W8
+    table rebuilt on the session's device every frame. Holds the unturned
+    scene, the axis point and the LBVH plan of its triangle count."""
+
+    def __init__(self, session, frames_per_turn: int):
+        self.session = session
+        self.frames_per_turn = int(frames_per_turn)
+        self.base = session.scene
+        self.center = turntable_center(session.scene_host.positions.numpy())
+        self.plan = lbvh_plan(session.scene.num_triangles)
+
+    def angle(self, f: int) -> np.float32:
+        """Frame f's angle, 2 pi f / frames_per_turn, as float32."""
+        return np.float32(2.0 * np.pi * f / self.frames_per_turn)
+
+    def frame(self, f: int, spp: int) -> torch.Tensor:
+        """Displayed frame f of the turn: the scene rotated by `angle(f)`,
+        its table built on the device, the session switched to both
+        (`use_geometry`: the accumulation restarts at sample 0) and `spp`
+        samples rendered; returns `display_image()`, on the device."""
+        sess = self.session
+        with span("turntable"):
+            scene, bvh = turntable_geometry(self.base, self.angle(f),
+                                            self.center, self.plan)
+            with span("turntable.geometry"):
+                sess.use_geometry(scene, bvh)
+            with span("turntable.samples"):
+                sess.render_to_completion(spp)
+            with span("turntable.display"):
+                return sess.display_image()
